@@ -5,7 +5,7 @@ CXX ?= g++
 CXXFLAGS ?= -O3 -std=c++17 -shared -fPIC
 NATIVE := csrc/build/libsgrace_host.so
 
-.PHONY: all native test test-fast bench sweep dist clean
+.PHONY: all native test test-fast test-gpu bench smoke clean
 
 all: native
 
@@ -21,20 +21,17 @@ test: native
 test-fast: native
 	python -m pytest tests/ -q -x -m "not slow"
 
-# headline benchmark on the real TPU (one JSON line; used by the driver)
+# tests that need an NVIDIA GPU (skipped by the CPU runs above)
+test-gpu: native
+	SGRACE_TEST_GPU=1 python -m pytest tests/ -q -m gpu
+
+# main paths on one GPU: compiled, checked, timed (last line is JSON)
+smoke: native
+	python chip_smoke.py
+
+# benchmark phases on one GPU (one JSON line)
 bench: native
 	python bench.py
 
-# backend sweeps on the real TPU
-sweep: native
-	python benchmarks/bench_spmm.py
-	python benchmarks/bench_gat.py
-	python benchmarks/bench_int8.py
-
-# multi-device scaling on the virtual CPU mesh (same code runs on a slice)
-dist:
-	python benchmarks/bench_scaling.py
-	python benchmarks/bench_dist_train.py
-
 clean:
-	rm -rf csrc/build sgracex1_tpu.egg-info build dist
+	rm -rf csrc/build .jax_cache sgracex1_tpu.egg-info build dist

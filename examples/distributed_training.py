@@ -4,8 +4,8 @@ The user-facing version of the driver's dry-run: a full GAT+GCN training
 step sharded over a 1D 'graph' device mesh — layer 1 is a halo-exchange
 GAT, layer 2 a halo-exchange GCN, parameters replicated, graph rows and
 node arrays sharded. On a CPU with XLA_FLAGS=--xla_force_host_platform_
-device_count=8 this runs on 8 virtual devices; on a TPU slice the same
-code runs over ICI, and after `init_multihost()` over DCN across hosts.
+device_count=8 this runs on 8 virtual devices; on a multi-GPU host the
+same code runs over NVLink, and after `init_multihost()` across hosts.
 
 Usage: python examples/distributed_training.py [--devices 8] [--epochs 30]
 """

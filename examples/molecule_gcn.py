@@ -7,7 +7,7 @@ notebook's GraphConvolution_pynq computes plain ``A @ X @ W`` with no
 normalization or self-loops), hidden 64, global mean pool, dropout 0.5,
 Adam lr=0.01, full-batch (the notebook's batch_size=256 covers all 150
 training graphs). Target: >= 0.76 test accuracy (README.md:127-129 reports
-0.76 around epoch 36 on the FPGA; this TPU-native run typically exceeds it
+0.76 around epoch 36 on the FPGA; this run typically exceeds it
 within ~10 epochs).
 
 Usage: python examples/molecule_gcn.py [--data-root PATH] [--seed N]

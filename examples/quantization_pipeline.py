@@ -10,7 +10,7 @@ bitstream's integer datapath — here it is one script:
    activation ranges (the max_fea telemetry analogue);
 3. fine-tune with fake-quant QAT at the chosen bit width;
 4. freeze to the full-integer int8 inference form (both matmuls int8 on
-   the MXU) and compare accuracy float vs QAT vs int8.
+   XLA's int8 dot) and compare accuracy float vs QAT vs int8.
 
 Usage: python examples/quantization_pipeline.py [--qbits 8|4|2|1]
 """
@@ -96,9 +96,9 @@ def main():
     acc = accuracy(logits, data.y, data.test_mask)
     print(f"int8 frozen test acc: {acc:.4f}")
 
-    # 5. the same freeze on SPARSE tiles (no dense N x N — the form that
-    #    runs at pubmed/1M scale): int8 x int8 -> int32 MXU tile kernel
-    net_s = qi8.freeze_gcn2_sparse(W1, W2, A, cal, tb=128, **am)
+    # 5. the same freeze on the SPARSE adjacency (no dense N x N — the form
+    #    that runs at pubmed/1M scale): exact int32 edge-path aggregation
+    net_s = qi8.freeze_gcn2_sparse(W1, W2, A, cal, **am)
     hidden_s = jax.jit(qi8.int8_gcn2_sparse_forward)(net_s, xs)
     logits_s = (
         np.asarray(hidden_s)[: data.num_nodes]

@@ -1,6 +1,6 @@
-"""SGRACEx1-TPU: a TPU-native framework for sparse GNN inference and training.
+"""SGRACEx1: a JAX framework for sparse GNN inference and training.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the SGRACE
+A from-scratch JAX/XLA re-design of the capabilities of the SGRACE
 FPGA dataflow accelerator (reference: hadimsnj/SGRACEx1):
 
 - CSR/COO sparse graph containers and loaders (reference 3-line CSR text format)
@@ -13,11 +13,12 @@ FPGA dataflow accelerator (reference: hadimsnj/SGRACEx1):
 - Full forward/backward training through the kernels via ``jax.custom_vjp``
   (reference autograd functions ``FPYNQ_GAT``/``RPYNQ`` — ``sgrace.py:267-1126``)
 - Multi-chip/multi-host scaling via ``jax.sharding`` meshes + ``shard_map``
-  (the TPU replacement for the reference's FEA/ADJ thread row-sharding)
+  (the replacement for the reference's FEA/ADJ thread row-sharding)
 
 Unlike the reference (an HLS dataflow engine + PYNQ host runtime), everything
-here is built TPU-first: static shapes, MXU-friendly tiling, Pallas kernels for
-the hot sparse ops, and XLA collectives for scaling.
+here is built for an accelerator driven by XLA: static shapes, the edge path
+(gather + segment sum) for the hot sparse ops, dense matmuls where the graph
+is small and dense, and XLA collectives for scaling.
 """
 
 __version__ = "0.1.0"

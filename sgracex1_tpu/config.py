@@ -4,7 +4,8 @@ The reference uses three config tiers (SURVEY.md §5 "Config / flag system"):
 compile-time ``#define``s (``src/matrix_mult.h:80,166-196``), a per-board
 ``config.py`` module (``demo/emulation/config.py``), and per-call runtime
 registers (``sgrace.py:1211-1249``). Here all three collapse into one frozen
-dataclass; the "recompile" tier becomes Pallas block sizes / static jit args.
+dataclass; the "recompile" tier becomes static jit arguments and the
+aggregation backend chosen at prepare time (ops/dispatch.py).
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ class SGRACEConfig:
     """Framework-wide configuration.
 
     Mirrors the capability surface of the reference's ``config.py``
-    (``demo/emulation/config.py:1-49``) re-expressed TPU-first.
+    (``demo/emulation/config.py:1-49``).
     """
 
     # --- model (reference: hidden_channels, head_count, compute_attention) ---
@@ -36,19 +37,9 @@ class SGRACEConfig:
 
     # --- numerics ---
     # The reference hardware computes in fp16 (HALF, matrix_mult.h:80); the
-    # TPU-native default is bf16 inputs with fp32 MXU accumulation.
+    # default here is f32 features with f32 accumulation.
     dtype: jnp.dtype = jnp.float32
     accum_dtype: jnp.dtype = jnp.float32
-
-    # --- kernel tiling (the "recompile" tier; analogues noted) ---
-    # B_WIDTH_BLOCK / C_WIDTH_BLOCK analogue: output-column tile width.
-    col_block: int = 128
-    # SPMM_BLOCK analogue: rows grouped per kernel step.
-    row_block: int = 128
-    # Edges processed per Pallas grid step.
-    edge_block: int = 2048
-    # Use the Pallas kernels for the hot ops (False => pure-XLA reference path).
-    use_pallas: bool = False
 
     # --- distribution (replaces FEA_THREADS/ADJ_THREADS spatial sharding) ---
     mesh_axis: str = "graph"

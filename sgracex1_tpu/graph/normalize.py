@@ -73,120 +73,6 @@ def sym_norm_edges(
     return edge_index, (dis[row] * edge_weight * dis[col]).astype(np.float32)
 
 
-def rank1_factor(
-    A: SparseMatrix, *, tol: float = 1e-5, iters: Optional[int] = None
-) -> Optional[Tuple[np.ndarray, np.ndarray]]:
-    """Detect a diagonal factorization ``v(r, c) = s_row[r] * s_col[c]`` of
-    the positive edge values (zero-valued edges — e.g. fill=0 self-loops —
-    contribute nothing to ``A @ H`` and are exempt).
-
-    sym_norm output on an unweighted graph has exactly this structure
-    (``d_r^{-1/2} * 1 * d_c^{-1/2}``), which lets the block-sparse backends
-    store tiles as exact int8 {0,1} *masks* — half the HBM traffic of bf16
-    value tiles and no value-rounding error — applying the two diagonal
-    scalings to H and the output instead (O(N*F) VPU work). Detection is
-    structural, not tied to sym_norm: after a degree-seed fast path
-    (sym-normalized graphs verify in one O(nnz) pass), the consistent
-    system ``log s_r + log s_c = log v`` is solved EXACTLY by
-    level-vectorized spanning-forest propagation on the bipartite
-    (row-node, col-node) graph, then every positive edge is verified to
-    ``tol`` relative error. Returns ``(s_row, s_col)`` float32, 1.0 at
-    nodes with no positive edges, or None when no factorization holds
-    (weighted graphs, quantized values, duplicate edges).
-
-    ``iters`` caps the number of frontier SWEEPS of the propagation
-    (default ``max(64, 4*sqrt(n_r + n_c))``); each sweep advances one
-    BFS level across every connected component at once, so only graphs
-    of diameter beyond the cap are affected — they fall back to value
-    tiles (the propagation stops early and the verify rejects).
-    """
-    n_r, n_c = A.n_rows, A.n_cols
-    r = np.asarray(A.rows[: A.nnz]).astype(np.int64)
-    c = np.asarray(A.cols[: A.nnz]).astype(np.int64)
-    v = np.asarray(A.vals[: A.nnz], dtype=np.float64)
-    pos = v > 0.0
-    if not pos.any() or (v < 0.0).any():
-        return None
-    r, c, v = r[pos], c[pos], v[pos]
-    key = r * n_c + c
-    if len(np.unique(key)) != len(key):
-        return None  # duplicate edges sum in the matrix; per-edge check invalid
-    w = np.log(v)
-    cnt_r = np.maximum(np.bincount(r, minlength=n_r), 1)
-    cnt_c = np.maximum(np.bincount(c, minlength=n_c), 1)
-
-    def _verified(x_r, x_c) -> bool:
-        return np.allclose(np.exp(x_r[r] + x_c[c]), v, rtol=tol, atol=0.0)
-
-    # Fast path: sym_norm of an unweighted graph gives s_i = deg_i^{-1/2}
-    # with deg = row weight sums == the positive-edge count per row, so the
-    # degree seed IS the solution — one O(nnz) verify instead of an
-    # iterative solve (the alternating solve below needs hundreds of
-    # iterations on million-node graphs).
-    if n_r == n_c:
-        x0 = -0.5 * np.log(cnt_r.astype(np.float64))
-        if _verified(x0, x0):
-            s = np.exp(x0)
-            s_r = np.where(np.bincount(r, minlength=n_r) == 0, 1.0, s)
-            s_c = np.where(np.bincount(c, minlength=n_c) == 0, 1.0, s)
-            return s_r.astype(np.float32), s_c.astype(np.float32)
-
-    # General rank-1 values: EXACT spanning-forest propagation on the
-    # bipartite (row-node, col-node) graph. The consistent system
-    # ``log s_r + log s_c = log v`` is determined up to one constant per
-    # connected component, so assigning x along any spanning forest and
-    # verifying every edge is an exact solve — it replaces the r3
-    # alternating Gauss-Seidel, whose iteration cap both cost 200 rounds
-    # on non-factorable graphs (the bench.py phase-1 warning) and could
-    # reject genuinely rank-1 graphs of large diameter. The propagation
-    # is LEVEL-VECTORIZED: every component is seeded at once (one root
-    # per connected component) and each sweep assigns the whole next
-    # frontier with one vectorized pass over the edge list — no per-node
-    # Python loop (which cost tens of seconds at the 2^22 scale).
-    # Conflicting same-sweep assignments resolve arbitrarily; if the
-    # system is consistent they agree, and if not the final per-edge
-    # verify rejects the graph either way. ``iters`` caps the sweep
-    # count (default: enough for any graph whose diameter is under
-    # ~4*sqrt(N); deeper path-like graphs fall back to value tiles).
-    import scipy.sparse as _sp
-    from scipy.sparse.csgraph import connected_components
-
-    nb = n_r + n_c
-    src = np.r_[r, c + n_r]
-    dst = np.r_[c + n_r, r]
-    ww = np.r_[w, w]
-    adj = _sp.coo_matrix(
-        (np.ones(len(src), np.int8), (src, dst)), shape=(nb, nb)
-    ).tocsr()
-    n_comp, labels = connected_components(adj, directed=False)
-    # one root per component: the first node of each label
-    _, roots = np.unique(labels, return_index=True)
-    x = np.zeros(nb)
-    seen = np.zeros(nb, bool)
-    seen[roots] = True
-    max_sweeps = iters if iters is not None else max(
-        64, int(4 * np.sqrt(nb))
-    )
-    for _ in range(max_sweeps):
-        m = seen[src] & ~seen[dst]
-        if not m.any():
-            break
-        d = dst[m]
-        x[d] = ww[m] - x[src[m]]  # duplicate d: last write wins (see above)
-        seen[d] = True
-    else:
-        if not seen.all():
-            return None  # diameter beyond the sweep cap: fall back
-    x_r, x_c = x[:n_r], x[n_r:]
-    if not _verified(x_r, x_c):
-        return None
-    s_r = np.exp(x_r)
-    s_c = np.exp(x_c)
-    s_r[np.bincount(r, minlength=n_r) == 0] = 1.0
-    s_c[np.bincount(c, minlength=n_c) == 0] = 1.0
-    return s_r.astype(np.float32), s_c.astype(np.float32)
-
-
 def sym_norm(
     edge_index: np.ndarray,
     num_nodes: int,

@@ -1,6 +1,6 @@
 """Neural-net layers: GCN / GAT convolutions with optional quantized datapath.
 
-TPU-native re-design of the reference's ``GATConv_SGRACE`` / ``Relu_SGRACE``
+Re-design of the reference's ``GATConv_SGRACE`` / ``Relu_SGRACE``
 modules (``demo/sgrace_lib/sgrace.py:1146-1265``) and the forward math of
 ``FPYNQ_GAT`` (``sgrace.py:301-681``). One layer = one fused
 ``ReLU?(agg @ (X @ W))`` where agg is the normalized adjacency (GCN) or the
@@ -25,16 +25,12 @@ from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
 
 from sgracex1_tpu.graph.csr import SparseMatrix
 from sgracex1_tpu.ops.spmm import spmm
 from sgracex1_tpu.ops.sddmm import sddmm, leaky_relu, edge_softmax
-from sgracex1_tpu.ops.flash_gat import (
-    gat_attention_agg_fused,
-    gat_attention_agg_hybrid,
-)
 from sgracex1_tpu.ops.fused_gnn import relu_hw, gnn_layer_quant_backward
+from sgracex1_tpu.nn.module import Module, zeros
 from sgracex1_tpu.ops.dispatch import (
     PreparedAdjacency,
     agg_matmul,
@@ -79,12 +75,7 @@ class _AmaxMixin:
     ``CalibrationTable.calibrate_from_amax`` (see quant/autocal.py)."""
 
     def _sow_amax(self, x, W, Wh):
-        # sow is a silent no-op when 'telemetry' isn't mutable, except under
-        # lifted transforms (nn.remat) where it raises — guard explicitly
-        if self.scope is None or not self.scope.is_mutable_collection(
-            "telemetry"
-        ):
-            return
+        # sow is a no-op unless the caller made 'telemetry' mutable
         self.sow("telemetry", "x_amax", jnp.max(jnp.abs(x)))
         self.sow("telemetry", "w_absmax", jnp.max(jnp.abs(W)))
         self.sow("telemetry", "wh_absmax", jnp.max(jnp.abs(Wh)))
@@ -102,17 +93,16 @@ def _xavier_gain(gain: float = 1.414):
     return init
 
 
-class ReluHW(nn.Module):
+class ReluHW(Module):
     """Standalone ReLU module (``Relu_SGRACE``). On the accelerator the relu
     is fused into the previous layer's write-out; here it's the same fused
     ``relu_hw`` the layers use — kept as a module for API parity."""
 
-    @nn.compact
     def __call__(self, x):
         return relu_hw(x)
 
 
-class GCNConv(nn.Module, _AmaxMixin):
+class GCNConv(Module, _AmaxMixin):
     """GCN convolution: ``ReLU?(A_hat @ (X @ W))``.
 
     Equivalent to the reference layer with ``compute_attention=0``
@@ -127,7 +117,6 @@ class GCNConv(nn.Module, _AmaxMixin):
     # accb=1 hardware-offloaded backward, go_qbits=8 — sgrace.py:701-878)
     go_quant: Optional[object] = None
 
-    @nn.compact
     def __call__(self, A, x: jax.Array, *, relu: bool = False):
         W = self.param(
             "weight", _xavier_gain(), (self.in_features, self.out_features)
@@ -144,7 +133,7 @@ class GCNConv(nn.Module, _AmaxMixin):
             out = gnn_layer_quant_backward(_edges(A), x, W, self.go_quant)
             if self.use_bias:
                 out = out + self.param(
-                    "bias", nn.initializers.zeros, (self.out_features,)
+                    "bias", zeros, (self.out_features,)
                 )
             return relu_hw(out) if relu else out
         Wh = jnp.dot(x, W, preferred_element_type=jnp.float32)
@@ -156,7 +145,7 @@ class GCNConv(nn.Module, _AmaxMixin):
             )
         out = _agg(A, Wh)
         if self.use_bias:
-            out = out + self.param("bias", nn.initializers.zeros, (self.out_features,))
+            out = out + self.param("bias", zeros, (self.out_features,))
         if relu:
             out = relu_hw(out)
         if q is not None:
@@ -164,7 +153,7 @@ class GCNConv(nn.Module, _AmaxMixin):
         return out
 
 
-class GATConv(nn.Module, _AmaxMixin):
+class GATConv(Module, _AmaxMixin):
     """GAT convolution (``GATConv_SGRACE``): multi-head attention aggregation.
 
     Parameters mirror the reference: one weight ``[in, out*nheads]`` and one
@@ -185,7 +174,6 @@ class GATConv(nn.Module, _AmaxMixin):
     # the exact GAT gradient, a capability the reference lacks.
     exact_gradients: bool = False
 
-    @nn.compact
     def __call__(
         self,
         A,
@@ -227,41 +215,17 @@ class GATConv(nn.Module, _AmaxMixin):
         # per-node score halves, ALL heads batched (no Python head loop)
         S1 = jnp.einsum("nhf,hf->nh", Wh_sg, a_src)  # [N, H]
         S2 = jnp.einsum("nhf,hf->nh", Wh_sg, a_dst)
-        # fused flash-attention kernel over BSR tiles when the adjacency
-        # was prepared with them (gather-free aggregation in fwd AND bwd)
-        use_flash = (
-            isinstance(A, PreparedAdjacency) and A.flash_tiles is not None
+        # batched edge path: heads ride the last axis ([E, H])
+        e_all = leaky_relu(
+            jnp.take(S1, A_e.rows, axis=0) + jnp.take(S2, A_e.cols, axis=0),
+            self.alpha,
         )
-        if use_flash:
-            if A.gat_plan is not None:
-                # hybrid attention split (power-law scale): dense tiles
-                # AND remainder chunk steps in one flash kernel pass —
-                # exact row softmax over all edges; the backward's
-                # remainder terms ride gat_rest's edge list
-                out = gat_attention_agg_hybrid(
-                    A.gat_plan, A.gat_rest, S1, S2, Wh_heads,
-                    self.alpha, A.gat_rest.rows_sorted,
-                ).reshape(-1, F * H)
-            else:
-                # fully fused fwd+bwd, ALL heads in one kernel per pass:
-                # both directions stream BSR tiles through the MXU; no
-                # per-edge gather in the training step
-                out = gat_attention_agg_fused(
-                    A.flash_tiles, S1, S2, Wh_heads, self.alpha
-                ).reshape(-1, F * H)
-        else:
-            # batched edge path: heads ride the vector lanes ([E, H])
-            e_all = leaky_relu(
-                jnp.take(S1, A_e.rows, axis=0)
-                + jnp.take(S2, A_e.cols, axis=0),
-                self.alpha,
-            )
-            s_all = edge_softmax(A_e, e_all)
-            out = jax.ops.segment_sum(
-                jnp.take(Wh_heads, A_e.cols, axis=0) * s_all[:, :, None],
-                A_e.rows,
-                num_segments=A_e.n_rows,
-            ).reshape(-1, F * H)
+        s_all = edge_softmax(A_e, e_all)
+        out = jax.ops.segment_sum(
+            jnp.take(Wh_heads, A_e.cols, axis=0) * s_all[:, :, None],
+            A_e.rows,
+            num_segments=A_e.n_rows,
+        ).reshape(-1, F * H)
 
         if relu:
             out = relu_hw(out)
@@ -270,15 +234,6 @@ class GATConv(nn.Module, _AmaxMixin):
         if return_attention:
             # per-edge logits / probabilities [H, E_pad] — the demo
             # bitstream's E / S read-back buffers (sgrace.py:498-539);
-            # reassemble densely with ops.fused_gnn.edges_to_dense.
-            # O(E) side computation (two gathers + a segment softmax),
-            # batched over heads — the AGGREGATION stays on the flash tile
-            # kernels; only the read-back buffers touch the edge list.
-            e_all = leaky_relu(
-                jnp.take(S1, A_e.rows, axis=0)
-                + jnp.take(S2, A_e.cols, axis=0),
-                self.alpha,
-            )
-            s_all = edge_softmax(A_e, e_all)
+            # reassemble densely with ops.fused_gnn.edges_to_dense
             return out, (e_all.T, s_all.T)
         return out

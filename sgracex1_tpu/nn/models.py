@@ -4,8 +4,8 @@
   ``GAT_PYNQ`` (``demo/emulation/demo_sgrace.py:271-399``): conv1 with fused
   relu, conv2 without, dropout(0.5), Linear head. Layer 1 consumes (possibly
   sparse-on-host) input features, layer 2 dense hidden features — the
-  reference's per-layer ``dense=0/1`` execution modes collapse on TPU where
-  the dense MXU path is the fast path for both.
+  reference's per-layer ``dense=0/1`` execution modes collapse here, where
+  the dense feature matmul is the fast path for both.
 - ``MoleculeGCN``: the molecule graph-classification network of the
   Graph_Classification notebook (``jupyter/molecule_gcn``, cells 14-20):
   2x GCNConv + global mean pool over the graph batch + dropout + Linear.
@@ -17,19 +17,19 @@ from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
 
 from sgracex1_tpu.graph.csr import SparseMatrix
 from sgracex1_tpu.nn.layers import GCNConv, GATConv
+from sgracex1_tpu.nn.module import Dense, Dropout, Module, remat as _remat
 from sgracex1_tpu.quant.calibration import CalibrationTable
 
 
 def _conv_apply(remat: bool, relu: bool):
     """Returns fn(conv_module, A, x) applying the conv, optionally under
-    nn.remat (jax.checkpoint). relu is closed over — it cannot be a traced
-    kwarg under the lifted transform."""
+    jax.checkpoint (nn.module.remat). relu is closed over — it cannot be a
+    traced argument of the checkpointed function."""
     fn = lambda conv, A, x: conv(A, x, relu=relu)
-    return nn.remat(fn) if remat else fn
+    return _remat(fn) if remat else fn
 
 
 def global_mean_pool(x: jax.Array, graph_ids: jax.Array, num_graphs: int):
@@ -41,7 +41,7 @@ def global_mean_pool(x: jax.Array, graph_ids: jax.Array, num_graphs: int):
     return sums / jnp.maximum(counts, 1.0)
 
 
-class GCNModel(nn.Module):
+class GCNModel(Module):
     """N-layer GCN for node classification (GAT_PYNQ with attention off;
     depth = the reference's ``layer_count`` register, sgrace.py:1852 —
     default 2 like every reference deployment).
@@ -60,7 +60,6 @@ class GCNModel(nn.Module):
     remat: bool = False
     num_layers: int = 2
 
-    @nn.compact
     def __call__(self, A: SparseMatrix, x, *, training: bool = False):
         cal = self.calibration
         # explicit names keep the param tree identical with/without remat
@@ -73,11 +72,11 @@ class GCNModel(nn.Module):
                         name=f"conv{i + 1}"),
                 A, x,
             )
-        x = nn.Dropout(self.dropout, deterministic=not training)(x)
-        return nn.Dense(self.num_classes)(x)
+        x = Dropout(self.dropout, deterministic=not training)(x)
+        return Dense(self.num_classes)(x)
 
 
-class GATModel(nn.Module):
+class GATModel(Module):
     """2-layer GAT for node classification (GAT_PYNQ, compute_attention=1)."""
 
     num_features: int
@@ -89,7 +88,6 @@ class GATModel(nn.Module):
     dropout: float = 0.5
     remat: bool = False
 
-    @nn.compact
     def __call__(self, A: SparseMatrix, x, *, training: bool = False):
         cal = self.calibration
         q1 = cal.layer_params(0) if cal else None
@@ -116,11 +114,11 @@ class GATModel(nn.Module):
             ),
             A, x,
         )
-        x = nn.Dropout(self.dropout, deterministic=not training)(x)
-        return nn.Dense(self.num_classes)(x)
+        x = Dropout(self.dropout, deterministic=not training)(x)
+        return Dense(self.num_classes)(x)
 
 
-class MoleculeGCN(nn.Module):
+class MoleculeGCN(Module):
     """2-layer GCN + global mean pool for graph classification (MUTAG-style).
 
     Mirrors GCN_PYNQ of the molecule notebook: conv1(relu fused), conv2,
@@ -135,7 +133,6 @@ class MoleculeGCN(nn.Module):
     dropout: float = 0.5
     remat: bool = False
 
-    @nn.compact
     def __call__(
         self,
         A: SparseMatrix,
@@ -159,5 +156,5 @@ class MoleculeGCN(nn.Module):
             A, x,
         )
         x = global_mean_pool(x, graph_ids, num_graphs)
-        x = nn.Dropout(self.dropout, deterministic=not training)(x)
-        return nn.Dense(self.num_classes)(x)
+        x = Dropout(self.dropout, deterministic=not training)(x)
+        return Dense(self.num_classes)(x)

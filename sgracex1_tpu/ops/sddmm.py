@@ -4,7 +4,7 @@ The reference computes GAT attention densely in emulation
 (``sgrace.py:309-314,634-647``): ``e = Wh@a1 + (Wh@a2)^T``, LeakyReLU, then a
 row softmax with non-edges masked to -9e15; the demo bitstream computes the
 same sparsely, returning per-edge logits (E buffer) and probabilities
-(S buffer) (``sgrace.py:501-539``). The TPU-native form is the sparse one:
+(S buffer) (``sgrace.py:501-539``). The form used here is the sparse one:
 scores only on edges (SDDMM) + a segment softmax over each row's edges —
 O(nnz) instead of O(N^2).
 
@@ -32,7 +32,7 @@ def sddmm(
 
     ``a_src``/``a_dst`` are the two halves of the reference's attention vector
     (``attention[:out_features]`` / ``attention[out_features:]`` —
-    sgrace.py:309-314). Reduces to two MXU matvecs + gathers.
+    sgrace.py:309-314). Reduces to two matvecs + gathers.
     """
     s1 = jnp.dot(Wh, a_src, preferred_element_type=jnp.float32)  # [N]
     s2 = jnp.dot(Wh, a_dst, preferred_element_type=jnp.float32)  # [N]
@@ -68,3 +68,24 @@ def edge_softmax(
     denom = jax.ops.segment_sum(ex, A.rows, num_segments=A.n_rows)
     denom = jnp.where(denom > 0, denom, 1.0)
     return ex / jnp.take(denom, A.rows, axis=0)
+
+
+def gat_attention_agg_ref(
+    A: SparseMatrix, s1: jax.Array, s2: jax.Array, Wh: jax.Array,
+    alpha: float = 0.2,
+) -> jax.Array:
+    """Plain attention aggregation on the edge path: the executable spec
+    GAT layers are tested against.
+
+    ``out[r] = sum_e softmax_row(LeakyReLU(s1[r] + s2[c_e])) * Wh[c_e]``
+    over row r's edges with value > 0. Single head: s1/s2 [N], Wh [N, F];
+    multi-head: s1/s2 [N, H], Wh [N, H, F]."""
+    e = leaky_relu(
+        jnp.take(s1, A.rows, axis=0) + jnp.take(s2, A.cols, axis=0), alpha
+    )
+    s = edge_softmax(A, e)
+    return jax.ops.segment_sum(
+        jnp.take(Wh, A.cols, axis=0) * s[..., None],
+        A.rows,
+        num_segments=A.n_rows,
+    )

@@ -1,12 +1,12 @@
-"""Sparse x dense matrix products (XLA reference path).
+"""Sparse x dense matrix products: the edge path.
 
-This is the TPU-native replacement for the reference's streaming CSR dot
-product cores (``dsp_kernel_wrapper_fea``/``_adj`` —
+The replacement for the reference's streaming CSR dot product cores
+(``dsp_kernel_wrapper_fea``/``_adj`` —
 ``src/kernelMatrixmult_all.cpp:1960-2152,1413-1957``). Where the FPGA hides
-FP-add latency with partial-sum rotors and row-grouping (SPMM_BLOCK), the TPU
-expresses the same computation as a vectorized gather + segment-sum, which XLA
-lowers to efficient scatter-adds; the Pallas kernels in
-``sgracex1_tpu.ops.pallas_spmm`` replace this on the hot path.
+FP-add latency with partial-sum rotors and row-grouping (SPMM_BLOCK), this
+expresses the same computation as a vectorized gather + segment-sum, which
+XLA lowers to native gathers and scatter-adds on the GPU. It is the hot
+path for sparse graphs (ops/dispatch.py).
 
 All functions take the padded row-sorted COO ``SparseMatrix``; padding entries
 carry value 0 so they contribute nothing.
@@ -37,28 +37,6 @@ def spmm(A: SparseMatrix, H: jax.Array, *, accum_dtype=jnp.float32) -> jax.Array
     return out.astype(H.dtype)
 
 
-def spmm_into(
-    A: SparseMatrix, H: jax.Array, out: jax.Array, *, accum_dtype=jnp.float32
-) -> jax.Array:
-    """``out + A @ H`` scatter-added directly into ``out``.
-
-    The hybrid backend's remainder edges (ops/dispatch.py) used to pay
-    ``out + spmm(rest, H)``: a zeros-init of a second [n_rows, P]
-    accumulator, the scatter, then a full elementwise add — ~1.5 GB of HBM
-    traffic for 86k edges at the 1M-node scale (measured 4.5 ms of the
-    12.2 ms hybrid aggregation, r3 diagnostic). Scatter-adding the edge
-    contributions into the existing accumulator skips both full-size
-    passes; XLA aliases the scatter in-place inside a jit."""
-    gathered = jnp.take(H, A.cols, axis=0).astype(accum_dtype)
-    weighted = gathered * A.vals.astype(accum_dtype)[:, None]
-    return (
-        out.astype(accum_dtype)
-        .at[A.rows]
-        .add(weighted, indices_are_sorted=A.rows_sorted)
-        .astype(out.dtype)
-    )
-
-
 def spmm_t(A: SparseMatrix, H: jax.Array, *, accum_dtype=jnp.float32) -> jax.Array:
     """out = A.T @ H without materializing the transpose.
 
@@ -76,7 +54,7 @@ def spmm_dense_rhs(
 ) -> jax.Array:
     """A @ (X_dense @ W) — the reference's ``gemm_mode=1`` dense-feature path
     (readers synthesize dense CSR indices, kernelMatrixmult_all.cpp:847-865,
-    986-1014). On TPU the dense stage is simply an MXU matmul."""
+    986-1014). Here the dense stage is simply a matmul."""
     H = jnp.dot(X_dense, W, preferred_element_type=accum_dtype)
     return spmm(A, H.astype(X_dense.dtype), accum_dtype=accum_dtype)
 

@@ -1,42 +1,46 @@
-"""ICI communication-volume model for the distributed layers.
+"""Interconnect communication-volume model for the distributed layers.
 
-The BASELINE.md scaling target (>= 80% edges/s efficiency at N devices)
-cannot be measured in this environment — one physical chip is attached, and
-a virtual CPU mesh measures collective *overhead*, not ICI bandwidth. What
-can be stated honestly is a first-order comm model: exact bytes each
-collective moves per layer (a property of the halo plan, not the hardware),
-divided by ICI bandwidth, against the roofline compute time
-(:mod:`sgracex1_tpu.utils.roofline`). This replaces the unvalidated
-percentage with a falsifiable prediction, the way the scaling-book recipe
-prescribes (mesh -> shardings -> collectives -> count the bytes).
+A first-order comm model: the exact bytes each collective moves per layer
+(a property of the halo plan, not the hardware), divided by the link
+bandwidth of the device, against the compute time. It turns the scaling
+target (BASELINE.md: >= 80% edges/s efficiency at N devices) into a
+falsifiable prediction (mesh -> shardings -> collectives -> count the
+bytes) that a measured multi-device step can be held to.
 
 The reference's analogue is its crossbar/DMA sizing arithmetic
 (``kernelMatrixmult_all.cpp`` C-buffer replication; SURVEY.md §2.5) — the
 FPGA design also had to budget boundary traffic against fabric bandwidth.
 
-TPU v5e ICI: 4 links/chip at 400 Gbps aggregate 1600 Gbps ~ 200 GB/s per
-chip (2D torus). A 1D ``all_to_all`` over a mesh axis rides one link pair
-per neighbor; the defaults model the aggregate case and are constructor
-parameters for other topologies.
+Link bandwidth comes from the peaks table of utils/roofline, keyed by
+``device_kind``: on an H100 host NVLink joins every card to every other at
+450 GB/s each way, so a 1-D ``all_to_all`` is bounded by each device's own
+outbound rate whatever the mesh order.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-V5E_ICI_BYTES_S = 200e9  # per-chip aggregate, 2D torus
-V5E_ICI_LINK_BYTES_S = 50e9  # one link direction
+from sgracex1_tpu.utils.roofline import device_peaks
+
+# the device the model predicts for when the caller names none
+DEFAULT_DEVICE = "NVIDIA H100 80GB HBM3"
+
+
+def link_bytes_s(device_kind: str = DEFAULT_DEVICE) -> float:
+    """Outbound interconnect bytes/s of one device (NVLink, each way)."""
+    return device_peaks(device_kind)["nvlink_each_way"]
 
 
 @dataclasses.dataclass(frozen=True)
 class CommCost:
-    """Per-device, per-layer-invocation ICI traffic in bytes."""
+    """Per-device, per-layer-invocation interconnect traffic in bytes."""
 
-    bytes_out: float  # sent over ICI by each device
+    bytes_out: float  # sent over the interconnect by each device
     note: str = ""
 
-    def seconds(self, ici_bytes_s: float = V5E_ICI_BYTES_S) -> float:
-        return self.bytes_out / ici_bytes_s
+    def seconds(self, bytes_s: float | None = None) -> float:
+        return self.bytes_out / (bytes_s or link_bytes_s())
 
     def __add__(self, other: "CommCost") -> "CommCost":
         return CommCost(
@@ -49,7 +53,7 @@ def halo_comm(G, F: int, *, itemsize: int = 4, backward: bool = False) -> CommCo
     """Boundary exchange of :class:`~sgracex1_tpu.parallel.halo.HaloGraph`.
 
     The forward ``all_to_all`` ships ``send_idx``-gathered rows [S, L, F];
-    each device keeps its own slot, so (S-1)*L*F*itemsize crosses ICI.
+    each device keeps its own slot, so (S-1)*L*F*itemsize crosses the links.
     The backward transposes the collective (same volume back).
     """
     S, L = G.n_shards, G.halo_len
@@ -77,7 +81,7 @@ def predicted_efficiency(
     n_devices: int,
     comm: CommCost,
     *,
-    ici_bytes_s: float = V5E_ICI_BYTES_S,
+    bytes_s: float | None = None,
     overlap: float = 0.0,
 ) -> dict:
     """Scaling efficiency prediction: perfect 1/S compute split plus
@@ -86,7 +90,7 @@ def predicted_efficiency(
     efficiency = T_1 / (S * T_S)  with  T_S = T_1/S + (1-overlap)*T_comm.
     """
     t_comp = comp_sec_single / n_devices
-    t_comm = comm.seconds(ici_bytes_s) * (1.0 - min(max(overlap, 0.0), 1.0))
+    t_comm = comm.seconds(bytes_s) * (1.0 - min(max(overlap, 0.0), 1.0))
     t_step = t_comp + t_comm
     return dict(
         t_comp_us=round(t_comp * 1e6, 2),
@@ -101,13 +105,13 @@ def scaling_table(
     comp_sec_single: float,
     comms: dict,
     *,
-    ici_bytes_s: float = V5E_ICI_BYTES_S,
+    bytes_s: float | None = None,
     overlap: float = 0.0,
 ) -> dict:
     """``{n_devices: CommCost}`` -> per-count efficiency predictions."""
     return {
         s: predicted_efficiency(
-            comp_sec_single, s, c, ici_bytes_s=ici_bytes_s, overlap=overlap
+            comp_sec_single, s, c, bytes_s=bytes_s, overlap=overlap
         )
         for s, c in sorted(comms.items())
     }

@@ -167,178 +167,6 @@ def build_halo(
     )
 
 
-@jax.tree_util.register_dataclass
-@dataclasses.dataclass(frozen=True)
-class HaloBSRPlan:
-    """Per-shard BSR tiles of the LOCAL adjacency blocks (+ transposed for
-    the backward). The local aggregation — the bulk of the edges after a
-    good partition — runs on the MXU tile kernel (ops/bsr.py) instead of
-    gather+segment-sum; only the remote (boundary) edges stay on the edge
-    path. Tile counts are padded to the max across shards with zero tiles
-    at (max rb, 0), which accumulate nothing."""
-
-    tiles: jax.Array  # [S, T, tb, tb] (or [S, T, tb, tb/8] packed masks)
-    tile_rb: jax.Array  # int32[S, T]
-    tile_cb: jax.Array  # int32[S, T]
-    tiles_t: jax.Array  # [S, Tt, tb, tb]  transposed local block
-    tile_rb_t: jax.Array
-    tile_cb_t: jax.Array
-    tb: int = dataclasses.field(metadata=dict(static=True))
-
-
-def build_halo_bsr(
-    G: HaloGraph, *, tb: int = 256, dtype=jnp.bfloat16,
-    mask: bool = False,
-) -> HaloBSRPlan:
-    """Densify each shard's local block into BSR tiles (fwd + transposed).
-
-    ``mask=True`` builds int8 {0,1} edge-presence tiles — 1-bit packed
-    when ``tb/8`` is lane-aligned — instead of value tiles. That is all
-    the distributed flash-GAT layer reads from the adjacency
-    (``dist_gat_layer_halo_flash`` masks via ``tile > 0``), and it is
-    what makes the plan viable at the 2^22-node scale: a per-shard f32
-    value tile set is tens of GB there, the packed masks tens of MB.
-    GCN aggregation needs the values — use value tiles (or better, the
-    fused plans in parallel/halo_fused) for that."""
-    from sgracex1_tpu.ops.bsr import (
-        bsr_bitmask_from_sparse,
-        bsr_from_sparse,
-        bsr_mask_from_sparse,
-    )
-
-    S = G.n_shards
-    n_local = G.n_local
-    packed = mask and tb % 8 == 0 and (tb // 8) % 128 == 0
-    plans, plans_t = [], []
-    for s in range(S):
-        r = np.asarray(G.rows_loc[s])
-        c = np.asarray(G.cols_loc[s])
-        v = np.asarray(G.vals_loc[s], dtype=np.float32)
-        A_l = SparseMatrix.from_coo(r, c, v, (n_local, n_local))
-        At_l = SparseMatrix.from_coo(c, r, v, (n_local, n_local))
-        if packed:
-            build = lambda M: bsr_bitmask_from_sparse(M, tb=tb)
-        elif mask:
-            build = lambda M: bsr_mask_from_sparse(M, tb=tb)
-        else:
-            build = lambda M: bsr_from_sparse(M, tb=tb, dtype=dtype)
-        plans.append(build(A_l))
-        plans_t.append(build(At_l))
-
-    inner = tb // 8 if packed else tb
-    np_dtype = np.asarray(plans[0].tiles).dtype
-
-    def stack(ps):
-        # full row-block cover: every row block needs >= 1 tile, or the flash
-        # kernel leaves its output/stat blocks unwritten (garbage). Rows
-        # whose edges are all remote can leave local blocks empty — add
-        # explicit zero tiles (mask all-false -> m=-inf, l=0, acc=0, which
-        # the stats merge treats as "no local edges").
-        n_rt = _round_up(n_local, tb) // tb
-        full = []
-        for p in ps:
-            rb_ = np.asarray(p.tile_rb)
-            cb_ = np.asarray(p.tile_cb)
-            t_ = np.asarray(p.tiles)
-            missing = np.setdiff1d(np.arange(n_rt, dtype=np.int32), rb_)
-            if len(missing):
-                rb_ = np.concatenate([rb_, missing])
-                cb_ = np.concatenate([cb_, np.zeros_like(missing)])
-                t_ = np.concatenate(
-                    [t_, np.zeros((len(missing), tb, inner), t_.dtype)]
-                )
-                order = np.lexsort((cb_, rb_))
-                rb_, cb_, t_ = rb_[order], cb_[order], t_[order]
-            full.append((t_, rb_, cb_))
-        T = max(t_.shape[0] for t_, _, _ in full)
-        tiles = np.zeros((S, T, tb, inner), np_dtype)
-        rb = np.zeros((S, T), np.int32)
-        cb = np.zeros((S, T), np.int32)
-        for s, (t_, rb_, cb_) in enumerate(full):
-            k = t_.shape[0]
-            tiles[s, :k] = t_
-            rb[s, :k] = rb_
-            cb[s, :k] = cb_
-            rb[s, k:] = rb_[-1]  # zero padding tiles: no 'first' reset
-        out = jnp.asarray(tiles)
-        if not (mask or packed):
-            out = out.astype(dtype)
-        return out, jnp.asarray(rb), jnp.asarray(cb)
-
-    t, rb, cb = stack(plans)
-    tt, rbt, cbt = stack(plans_t)
-    return HaloBSRPlan(
-        tiles=t, tile_rb=rb, tile_cb=cb,
-        tiles_t=tt, tile_rb_t=rbt, tile_cb_t=cbt, tb=tb,
-    )
-
-
-def dist_spmm_halo_bsr(
-    mesh: Mesh, G: HaloGraph, BP: HaloBSRPlan, H: jax.Array
-) -> jax.Array:
-    """out = A @ H: local block on the BSR tile kernel (MXU, fwd+bwd),
-    boundary edges via all_to_all + segment-sum. The collective and the
-    local tile matmuls have no data dependence — XLA overlaps them."""
-    from sgracex1_tpu.ops.bsr import BSRMatrix, bsr_spmm
-
-    tb = BP.tb
-
-    @partial(
-        shard_map,
-        mesh=mesh,
-        in_specs=(P("graph", None),) * 3
-        + (P("graph", None, None, None), P("graph", None), P("graph", None)) * 2
-        + (P("graph", None, None), P("graph", None)),
-        out_specs=P("graph", None),
-        check_vma=False,  # pallas_call out_shape carries no vma annotation
-    )
-    def f(rows_rem, cols_halo, vals_rem, tiles, rb, cb, tiles_t, rbt, cbt,
-          send_idx, H_l):
-        rows_rem, cols_halo, vals_rem = rows_rem[0], cols_halo[0], vals_rem[0]
-        send_idx = send_idx[0]
-        B = BSRMatrix(tiles=tiles[0], tile_rb=rb[0], tile_cb=cb[0],
-                      n_rows=G.n_local, n_cols=G.n_local, tb=tb)
-        Bt = BSRMatrix(tiles=tiles_t[0], tile_rb=rbt[0], tile_cb=cbt[0],
-                       n_rows=G.n_local, n_cols=G.n_local, tb=tb)
-
-        send = jnp.take(H_l, send_idx.reshape(-1), axis=0).reshape(
-            send_idx.shape + (H_l.shape[1],)
-        )
-        halo = jax.lax.all_to_all(
-            send, "graph", split_axis=0, concat_axis=0, tiled=False
-        ).reshape(-1, H_l.shape[1])
-
-        out = bsr_spmm(B, Bt, H_l)[: G.n_local]
-        out = out + jax.ops.segment_sum(
-            jnp.take(halo, cols_halo, axis=0) * vals_rem[:, None],
-            rows_rem,
-            num_segments=G.n_local,
-        )
-        return out
-
-    return f(
-        G.rows_rem, G.cols_halo, G.vals_rem,
-        BP.tiles, BP.tile_rb, BP.tile_cb,
-        BP.tiles_t, BP.tile_rb_t, BP.tile_cb_t,
-        G.send_idx, H,
-    )
-
-
-def dist_gnn_layer_halo_bsr(
-    mesh: Mesh,
-    G: HaloGraph,
-    BP: HaloBSRPlan,
-    x: jax.Array,
-    W: jax.Array,
-    *,
-    relu: bool = False,
-) -> jax.Array:
-    """GCN layer ReLU?(A @ (X @ W)): MXU tile kernel for the local block."""
-    H = jnp.dot(x, W, preferred_element_type=jnp.float32)
-    out = dist_spmm_halo_bsr(mesh, G, BP, H)
-    return relu_hw(out) if relu else out
-
-
 def dist_spmm_halo(
     mesh: Mesh, G: HaloGraph, H: jax.Array, *, exchange: bool = True
 ) -> jax.Array:
@@ -410,86 +238,6 @@ def dist_gnn_layer_halo(
 
 
 _NEG_INF = -9e15
-
-
-def dist_gat_layer_halo_flash(
-    mesh: Mesh,
-    G: HaloGraph,
-    BP: HaloBSRPlan,
-    x: jax.Array,
-    W: jax.Array,
-    attention: jax.Array,
-    *,
-    alpha: float = 0.2,
-    relu: bool = False,
-    nheads: int = 1,
-) -> jax.Array:
-    """GAT layer: local block on the fused flash kernels (forward AND
-    backward), remote edges merged via softmax stats — the distributed
-    version of flash attention's block-combine step, differentiable
-    end-to-end (ops/flash_gat.flash_gat_halo_agg).
-
-    Gradient semantics match ``dist_gat_layer_halo``: attention scores are
-    computed on gradient-stopped hidden states (the reference backward
-    approximation, sgrace.py:1094-1103); the aggregation itself
-    differentiates through the fused tile kernels, the halo edges, AND the
-    all_to_all (autodiff transposes the collective, returning halo
-    cotangents to the owning shards).
-    """
-    from sgracex1_tpu.ops.bsr import BSRMatrix
-    from sgracex1_tpu.ops.flash_gat import flash_gat_halo_agg
-
-    FH = W.shape[1]
-    assert FH % nheads == 0
-    F = FH // nheads
-    tb = BP.tb
-
-    @partial(
-        shard_map,
-        mesh=mesh,
-        in_specs=(P("graph", None),) * 3
-        + (P("graph", None, None, None), P("graph", None), P("graph", None))
-        + (P("graph", None, None), P("graph", None), P(None, None), P(None)),
-        out_specs=P("graph", None),
-        check_vma=False,
-    )
-    def f(rows_rem, cols_halo, vals_rem, tiles, rb, cb, send_idx, x_l, W_r, a):
-        rows_rem, cols_halo, vals_rem = rows_rem[0], cols_halo[0], vals_rem[0]
-        send_idx = send_idx[0]
-        B = BSRMatrix(tiles=tiles[0], tile_rb=rb[0], tile_cb=cb[0],
-                      n_rows=G.n_local, n_cols=G.n_local, tb=tb)
-
-        H_l = jnp.dot(x_l, W_r, preferred_element_type=jnp.float32)
-        send = jnp.take(H_l, send_idx.reshape(-1), axis=0).reshape(
-            send_idx.shape + (FH,)
-        )
-        halo = jax.lax.all_to_all(
-            send, "graph", split_axis=0, concat_axis=0, tiled=False
-        ).reshape(-1, FH)
-
-        Hsg = jax.lax.stop_gradient(H_l).reshape(-1, nheads, F)
-        halo_sg = jax.lax.stop_gradient(halo).reshape(-1, nheads, F)
-        a_src = a[:FH].reshape(nheads, F)
-        a_dst = a[FH:].reshape(nheads, F)
-        mask_r = vals_rem > 0
-
-        # all heads batched: ONE fused kernel per pass (fwd / bwd-row /
-        # bwd-col), head = leading grid dimension
-        S1 = jnp.einsum("nhf,hf->nh", Hsg, a_src)
-        S2 = jnp.einsum("nhf,hf->nh", Hsg, a_dst)
-        S2h = jnp.einsum("nhf,hf->nh", halo_sg, a_dst)
-        out = flash_gat_halo_agg(
-            B, S1, S2, S2h,
-            H_l.reshape(-1, nheads, F), halo.reshape(-1, nheads, F),
-            rows_rem, cols_halo, mask_r, alpha,
-        ).reshape(-1, FH)
-        return relu_hw(out) if relu else out
-
-    return f(
-        G.rows_rem, G.cols_halo, G.vals_rem,
-        BP.tiles, BP.tile_rb, BP.tile_cb,
-        G.send_idx, x, W, attention.reshape(-1),
-    )
 
 
 def dist_gat_layer_halo(

@@ -3,7 +3,7 @@
 1D row partition: node i belongs to shard i // (N_pad / S). Each shard owns
 the adjacency edges whose *destination row* is local (so aggregation output
 is local) with global column indices; per-shard edge lists are padded to a
-common static length. This is the TPU equivalent of the reference's
+common static length. This is the equivalent of the reference's
 ``first_row/row_count`` ADJ-thread split (kernelMatrixmult_all.cpp:3439-3452)
 — there the crossbar replicated the XW buffer to every thread; here the
 XW activations are all-gathered (or halo-exchanged) across shards.

@@ -2,8 +2,8 @@
 
 Row-parallel execution: X and the output are row-sharded over the 'graph'
 mesh axis; W and attention params are replicated. Each layer computes the
-local XW, all-gathers the (small) hidden activations across shards over
-ICI, then aggregates its local adjacency rows — the TPU replacement for the
+local XW, all-gathers the (small) hidden activations across shards, then
+aggregates its local adjacency rows — the replacement for the
 reference's FEA->ADJ crossbar, where every ADJ thread could read every FEA
 thread's C_buffer block (dsp_kernel_*_adj_2/4 block-select,
 kernelMatrixmult_all.cpp:1413-1776).

@@ -10,7 +10,7 @@ sgrace.py:334-365; here each layer owns its params explicitly).
 
 The default ranges are the reference's active (uncommented) values, i.e. its
 Cora/planetoid calibration. ``CalibrationTable.calibrate_from_amax`` replaces
-them from observed activation ranges — the TPU-native analogue of the
+them from observed activation ranges — the analogue of the
 ``max_fea`` telemetry register (sgrace.py:506-520).
 """
 

@@ -1,4 +1,4 @@
-"""True-integer int8 inference path on the MXU.
+"""True-integer int8 inference path.
 
 The reference has two integer datapaths: a gemmlowp-style requantize stage in
 the HLS engine (``scale``, kernelMatrixmult_all.cpp:2155-2259 — compiled out
@@ -6,16 +6,16 @@ by default) and the demo bitstream's on-chip quantize/dequantize pipeline
 driven by the ``quantization_scale_*`` / ``deq_factor`` registers
 (sgrace.py:334-365). The QAT path (quant/affine.py) *emulates* those with
 float fake-quant; this module is the real thing for inference: both layer
-matmuls run as int8xint8->int32 on the MXU, with requantization between
-stages.
+matmuls run as int8 x int8 -> int32 (XLA's integer dot), with
+requantization between stages.
 
-TPU int8 convention: the MXU consumes signed int8. Unsigned-grid tensors
+int8 convention: the integer dot consumes signed int8. Unsigned-grid tensors
 (input features and adjacency: z = 0, range [0, 2^qbits - 1]) are stored
 shifted by -128 into int8, and the matmul is corrected with the identity
 
     Uq @ S = (Us + 128) @ S = Us @ S + 128 * colsum(S)
 
-where the correction is a per-output-column constant — the TPU analogue of
+where the correction is a per-output-column constant — the analogue of
 the reference's zero-point bias preload (``bias_start``,
 kernelMatrixmult_all.cpp:3876-3888). The hidden XW grid is *signed*
 symmetric, matching the reference's signed internal fixed-point pipeline
@@ -26,7 +26,12 @@ kernelMatrixmult_all.cpp:798-805).
 Requantization computes ``round(acc * m)`` in float32 rather than the
 reference's Q31 fixed-point ``(acc * mult) >> (31 - shift)``: f32 holds
 integers exactly up to 2^24, far above int8 GNN accumulators, so the results
-match the integer formula while staying on the VPU's fast path.
+match the integer formula.
+
+Sparse graphs aggregate on the edge path: the quantized adjacency stays a
+COO edge list whose values are unsigned-grid integers, and ``Aq @ Hq`` is an
+exact int32 gather + segment sum (``int8_spmm``) — no dense N x N, usable at
+any N.
 """
 
 from __future__ import annotations
@@ -61,7 +66,7 @@ def quantize_signed(x: jax.Array, c: QuantConstants) -> jax.Array:
 
 
 def _int8_matmul(a: jax.Array, b: jax.Array) -> jax.Array:
-    """int8 x int8 -> int32 on the MXU."""
+    """int8 x int8 -> int32 (exact)."""
     return jax.lax.dot_general(
         a,
         b,
@@ -148,8 +153,8 @@ def freeze_gcn_layer(
 def int8_gcn_layer(
     layer: Int8GCNLayer, a_s: jax.Array, xs: jax.Array
 ) -> Tuple[jax.Array, float]:
-    """Full-integer GCN layer: acc = Aq @ requant(Xq @ Wq), both matmuls on
-    the MXU in int8.
+    """Full-integer GCN layer: acc = Aq @ requant(Xq @ Wq), both matmuls
+    int8 x int8 -> int32.
 
     a_s: dense adjacency on the unsigned grid, shifted int8 [N, N].
     xs: features on the unsigned grid, shifted int8 [N, F].
@@ -170,59 +175,38 @@ def dense_adjacency_int8(A_dense: np.ndarray, c_a: QuantConstants) -> jax.Array:
     return jnp.asarray((aq - _SHIFT).astype(np.int8))
 
 
-def bsr_int8_from_sparse(
-    A, c_a: QuantConstants, *, tb: int = 512,
-    cover_cols: bool = False, device_build: bool | None = None,
-):
-    """Quantize a SPARSE adjacency onto the unsigned grid and densify the
-    nonempty tiles as shifted int8 — the sparse-scale replacement for
-    ``dense_adjacency_int8``'s N x N matrix (which caps full-integer GCN at
-    ~16k nodes). Absent tile positions quantize to 0 on the unsigned grid,
-    i.e. -128 shifted, which is exactly what (tiles_f32 - 128) yields for
-    the build's zero-initialized slots. Consumed by ops.bsr.bsr_spmm_int8.
-
-    ``cover_cols``/``device_build`` pass through to bsr_from_sparse for
-    large tile sets (the on-device build casts each batch to int8
-    immediately, so the f32 scratch never holds the whole tile set —
-    required at the 1M-node scale where the f32 form is ~10 GB).
-    """
-    from sgracex1_tpu.graph.csr import SparseMatrix
-    from sgracex1_tpu.ops.bsr import bsr_from_sparse
-
-    import dataclasses as _dc
-
+def sparse_adjacency_int8(A, c_a: QuantConstants):
+    """Quantize a SPARSE adjacency's edge values onto the unsigned grid
+    [0, beta_q] — the sparse-scale replacement for
+    ``dense_adjacency_int8``'s N x N matrix. Returns a SparseMatrix whose
+    values are the grid integers (held in float32, exact)."""
     v = np.asarray(A.vals)
-    aq = np.clip(np.round(v / c_a.s + c_a.z), 0, c_a.beta_q).astype(
-        np.float32
-    )
-    B = bsr_from_sparse(
-        A.with_vals(aq), tb=tb, dtype=jnp.float32, cover_rows=True,
-        cover_cols=cover_cols, device_build=device_build,
-        batch_postprocess=_shift_int8_batch,
-    )
-    if B.tiles.dtype != jnp.int8:  # host build path: tiles still f32
-        tiles = jax.jit(lambda t: (t - 128.0).astype(jnp.int8))(B.tiles)
-        B = _dc.replace(B, tiles=tiles)
-    return B
+    aq = np.clip(np.round(v / c_a.s + c_a.z), 0, c_a.beta_q)
+    return A.with_vals(jnp.asarray(aq.astype(np.float32)))
 
 
-@jax.jit
-def _shift_int8_batch(t: jax.Array) -> jax.Array:
-    return (t - 128.0).astype(jnp.int8)
+def int8_spmm(Aq, hq: jax.Array) -> jax.Array:
+    """Exact int32 ``Aq @ Hq`` on the edge path: ``Aq`` holds unsigned-grid
+    integer edge values (sparse_adjacency_int8; padding edges are 0),
+    ``hq`` signed int8 [N, P]. Every product and sum is int32."""
+    contrib = jnp.take(hq, Aq.cols, axis=0).astype(jnp.int32) * Aq.vals.astype(
+        jnp.int32
+    )[:, None]
+    return jax.ops.segment_sum(
+        contrib, Aq.rows, num_segments=Aq.n_rows,
+        indices_are_sorted=Aq.rows_sorted,
+    )
 
 
 def int8_gcn_layer_sparse(
-    layer: Int8GCNLayer, a_bsr, xs: jax.Array
+    layer: Int8GCNLayer, a_q, xs: jax.Array
 ) -> Tuple[jax.Array, float]:
-    """Full-integer GCN layer on BSR tiles: both matmuls int8 x int8 ->
-    int32 on the MXU, no dense N x N anywhere — the reference's quantized
-    engine capability (sgrace.py:334-365) at sparse scale."""
-    from sgracex1_tpu.ops.bsr import bsr_spmm_int8
-
+    """Full-integer GCN layer on a sparse quantized adjacency: X@W as an
+    int8 dot, aggregation as the exact int32 edge sum — the reference's
+    quantized engine capability (sgrace.py:334-365) at sparse scale."""
     acc1 = matmul_unsigned_x_signed(xs, layer.wq)
     h_q = requantize_signed(acc1, layer.s_x * layer.s_w / layer.s_h)
-    acc2 = bsr_spmm_int8(a_bsr, h_q)[: xs.shape[0]]
-    return acc2, layer.s_a * layer.s_h
+    return int8_spmm(a_q, h_q), layer.s_a * layer.s_h
 
 
 # --------------------------------------------------------- two-layer network
@@ -233,7 +217,7 @@ def int8_gcn_layer_sparse(
 class Int8GCN2:
     """The reference's 2-layer GCN frozen for full-integer inference
     (dense quantized adjacency — small graphs; see Int8GCN2Sparse for the
-    tile form that scales past the dense N x N cap)."""
+    sparse form that scales past the dense N x N cap)."""
 
     layer1: Int8GCNLayer
     layer2: Int8GCNLayer
@@ -243,17 +227,16 @@ class Int8GCN2:
 @jax.tree_util.register_dataclass
 @dataclasses.dataclass(frozen=True)
 class Int8GCN2Sparse:
-    """2-layer GCN frozen for full-integer inference on BSR tiles: the
-    quantized adjacency lives as shifted-int8 nonempty tiles
-    (bsr_int8_from_sparse) and aggregation runs ops.bsr.bsr_spmm_int8 —
-    int8 x int8 -> int32 on the MXU with NO dense N x N, so full-integer
-    inference runs at pubmed/1M scale (the reference's quantized engine
-    runs at its full supported size, sgrace.py:334-365,1296-1845; the
-    dense Int8GCN2 capped ours at ~16k nodes)."""
+    """2-layer GCN frozen for full-integer inference on a sparse quantized
+    adjacency (sparse_adjacency_int8): aggregation is the exact int32 edge
+    sum, with NO dense N x N, so full-integer inference runs at pubmed/1M
+    scale (the reference's quantized engine runs at its full supported
+    size, sgrace.py:334-365,1296-1845; the dense Int8GCN2 caps at ~16k
+    nodes)."""
 
     layer1: Int8GCNLayer
     layer2: Int8GCNLayer
-    a_bsr: object  # ops.bsr.BSRMatrix, shifted-int8 value tiles
+    a_q: object  # graph.csr.SparseMatrix of unsigned-grid edge values
 
 
 def freeze_gcn2(
@@ -298,10 +281,9 @@ def freeze_gcn2_sparse(
     h1_absmax: float,
     x2_absmax: float,
     h2_absmax: float,
-    tb: int = 512,
 ) -> Int8GCN2Sparse:
-    """freeze_gcn2 with a SPARSE adjacency (SparseMatrix) quantized into
-    shifted-int8 BSR tiles instead of a dense N x N matrix."""
+    """freeze_gcn2 with a SPARSE adjacency (SparseMatrix) quantized edge by
+    edge instead of into a dense N x N matrix."""
     c_x2 = QuantConstants(
         s_o=1.0, s=max(float(x2_absmax), 1e-8) / 255.0, z=0, qbits=8,
         signed=False,
@@ -315,7 +297,7 @@ def freeze_gcn2_sparse(
     return Int8GCN2Sparse(
         layer1=l1,
         layer2=l2,
-        a_bsr=bsr_int8_from_sparse(A, cal.adjacency, tb=tb),
+        a_q=sparse_adjacency_int8(A, cal.adjacency),
     )
 
 
@@ -327,7 +309,7 @@ def freeze_gcn2_sparse(
 class Int8GATLayer:
     """GAT layer frozen for integer inference (single head).
 
-    X@W runs int8 x int8 -> int32 on the MXU; attention scores are int8
+    X@W runs int8 x int8 -> int32; attention scores are int8
     matvecs. The edge softmax is float (O(E) transcendentals — the demo
     bitstream likewise computes the softmax in its float pipeline stage,
     reading back S, sgrace.py:501-539), and the attention-weighted
@@ -385,7 +367,7 @@ def int8_gat_layer(
     n_nodes: int,
     xs: jax.Array,
 ) -> Tuple[jax.Array, float]:
-    """Full GAT layer with integer matmuls.
+    """Full GAT layer with integer matmuls, aggregated on the edge path.
 
     rows/cols/edge_mask: padded COO edges of the adjacency (mask = real edge
     with positive weight). Returns (int32 accumulator, dequant scale).
@@ -455,10 +437,10 @@ def int8_gcn2_forward(net: Int8GCN2, xs: jax.Array) -> jax.Array:
 
 
 def int8_gcn2_sparse_forward(net: Int8GCN2Sparse, xs: jax.Array) -> jax.Array:
-    """int8_gcn2_forward on BSR tiles (same math; sparse scale)."""
-    acc1, scale1 = int8_gcn_layer_sparse(net.layer1, net.a_bsr, xs)
+    """int8_gcn2_forward on the sparse adjacency (same math; sparse scale)."""
+    acc1, scale1 = int8_gcn_layer_sparse(net.layer1, net.a_q, xs)
     x2 = requantize_unsigned_shifted(acc1, scale1 / net.layer2.s_x)
-    acc2, scale2 = int8_gcn_layer_sparse(net.layer2, net.a_bsr, x2)
+    acc2, scale2 = int8_gcn_layer_sparse(net.layer2, net.a_q, x2)
     return dequantize_acc(acc2, scale2)
 
 
@@ -473,96 +455,3 @@ def collect_amax_gcn2_sparse(A_sp, X: np.ndarray, W1, W2) -> dict:
         x2_absmax=float(h1.max()),
         h2_absmax=float(np.abs(h2_pre).max()),
     )
-
-
-# ----------------------------------------------------- int8 GAT on flash
-
-
-def int8_gat_layer_flash(
-    layer: Int8GATLayer, B, xs: jax.Array
-) -> Tuple[jax.Array, float]:
-    """Int8GATLayer with the attention aggregation on the fused flash tile
-    kernel instead of the per-edge segment path — no per-edge gather, no
-    dense N x N, runs at any graph scale.
-
-    ``B``: mask BSRMatrix of the adjacency (bsr_mask_from_sparse /
-    bsr_bitmask_from_sparse). X@W and the score matvecs run int8 on the
-    MXU; the softmax runs in the flash kernel's float pipeline (the demo
-    bitstream also computes the softmax in float, sgrace.py:501-539); the
-    aggregation matmul feeds the int8-valued hidden states through the
-    MXU in bf16, which represents int8 exactly. Returns (float32
-    accumulator in h_q units — softmax rows sum to 1, so no 255-grid
-    factor — and its dequant scale s_h).
-    """
-    from sgracex1_tpu.ops.flash_gat import flash_gat_forward
-
-    acc1 = matmul_unsigned_x_signed(xs, layer.wq)
-    h_q = requantize_signed(acc1, layer.s_x * layer.s_w / layer.s_h)
-    s1 = jnp.dot(
-        h_q, layer.aq_src, preferred_element_type=jnp.int32
-    ).astype(jnp.float32)
-    s2 = jnp.dot(
-        h_q, layer.aq_dst, preferred_element_type=jnp.int32
-    ).astype(jnp.float32)
-    sc = layer.s_h * layer.s_a
-    out = flash_gat_forward(
-        B, s1 * sc, s2 * sc, h_q.astype(jnp.float32), alpha=layer.alpha
-    )[: xs.shape[0]]
-    return out, layer.s_h
-
-
-# ------------------------------------------------- hybrid int8 at scale
-
-
-def prepare_int8_hybrid(A, c_a: QuantConstants, *, tb: int = 1024,
-                        K: int = 128):
-    """Full-integer aggregation plan for LARGE graphs: hybrid density
-    split with shifted-int8 dense tiles + quantized remainder chunks in
-    one fused schedule (ops/fused_agg.bsr_spmm_int8_fused).
-
-    This is what makes the reference's quantized engine capability
-    (sgrace.py:334-365) runnable at the 2^20+ scale: the full-adjacency
-    int8 tile set (Int8GCN2Sparse's a_bsr) is ~21 GB at 1M nodes, while
-    the hybrid dense part is ~2.4 GB and the remainder rides value-
-    carrying one-hot chunks. Returns a value-mode FusedAggPlan whose
-    slot scales are the remainder's unsigned-grid quantized values.
-    """
-    from sgracex1_tpu.ops.bsr import bsr_tile_keys
-    from sgracex1_tpu.ops.dispatch import (
-        _REST_CHUNK_S,
-        _REST_K,
-        _REST_SLOT_S,
-        _tile_cost_s,
-        split_by_tile_density,
-    )
-    from sgracex1_tpu.ops.fused_agg import build_fused_plan
-
-    thresh = int(
-        np.ceil(
-            _tile_cost_s(tb, 1.0)
-            / (_REST_SLOT_S + _REST_CHUNK_S / _REST_K)
-        )
-    )
-    part, rest = split_by_tile_density(A, tb, thresh)
-    B8 = bsr_int8_from_sparse(
-        part, c_a, tb=tb, cover_cols=True
-    )
-    rest_q = None
-    if rest.nnz:
-        rv = np.asarray(rest.vals)
-        aq = np.clip(np.round(rv / c_a.s + c_a.z), 0, c_a.beta_q).astype(
-            np.float32
-        )
-        rest_q = rest.with_vals(aq)
-    return build_fused_plan(
-        B8, rest_q, K=K,
-        tile_keys=bsr_tile_keys(part, tb, cover_rows=True, cover_cols=True),
-        attach_chunks=True,
-    )
-
-
-def int8_hybrid_agg(plan, Hq: jax.Array) -> jax.Array:
-    """Exact int32 ``Aq @ Hq`` on the hybrid full-integer plan."""
-    from sgracex1_tpu.ops.fused_agg import bsr_spmm_int8_fused
-
-    return bsr_spmm_int8_fused(plan, Hq)

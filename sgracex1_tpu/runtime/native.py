@@ -3,7 +3,7 @@
 The shared library is built on demand with g++ (no pip deps) and cached next
 to the source; set ``SGRACE_NATIVE=0`` to force the pure-Python fallbacks.
 Every binding has a numpy twin in the package (graph/io.py,
-graph/normalize.py, ops/pallas_spmm.py) — the Python versions are the spec,
+graph/normalize.py, graph/reorder.py) — the Python versions are the spec,
 the native versions are the fast path, and tests/test_native.py pins them
 equal.
 """
@@ -83,15 +83,6 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.sg_sym_nnz.argtypes = [h]
     lib.sg_sym_copy.argtypes = [h, _p_i64, _p_i64, _p_f32]
     lib.sg_sym_free.argtypes = [h]
-
-    lib.sg_plan_build.restype = h
-    lib.sg_plan_build.argtypes = [_i64, _p_i32, _p_i32, _p_f32,
-                                  _i32, _i32, _i32]
-    lib.sg_plan_num_groups.restype = _i64
-    lib.sg_plan_num_groups.argtypes = [h]
-    lib.sg_plan_copy.argtypes = [h, _p_i32, _p_i32, _p_f32, _p_i32,
-                                 _p_i32, _p_i32]
-    lib.sg_plan_free.argtypes = [h]
 
     lib.sg_partition_balance.argtypes = [_i64, _p_i64, _i32, _p_i64]
 
@@ -208,39 +199,6 @@ def sym_norm_edges(
         return np.stack([ro, co]), wo
     finally:
         lib.sg_sym_free(h)
-
-
-def plan_tiles(
-    rows: np.ndarray,
-    cols: np.ndarray,
-    vals: np.ndarray,
-    rb: int,
-    cb: int,
-    be: int,
-) -> Optional[Tuple[np.ndarray, ...]]:
-    """Edge-tile schedule: (lrow, lcol, val, perm) each [G*be] linear, plus
-    (tile_rb, tile_cb) each [G]. None when the native lib is unavailable."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    rows = np.ascontiguousarray(rows, np.int32)
-    cols = np.ascontiguousarray(cols, np.int32)
-    vals = np.ascontiguousarray(vals, np.float32)
-    h = lib.sg_plan_build(rows.shape[0], rows, cols, vals, rb, cb, be)
-    if not h:
-        return None
-    try:
-        g = lib.sg_plan_num_groups(h)
-        lrow = np.empty(g * be, np.int32)
-        lcol = np.empty(g * be, np.int32)
-        val = np.empty(g * be, np.float32)
-        perm = np.empty(g * be, np.int32)
-        trb = np.empty(g, np.int32)
-        tcb = np.empty(g, np.int32)
-        lib.sg_plan_copy(h, lrow, lcol, val, perm, trb, tcb)
-        return lrow, lcol, val, perm, trb, tcb
-    finally:
-        lib.sg_plan_free(h)
 
 
 def rcm_order(

@@ -1,9 +1,7 @@
-from sgracex1_tpu.utils.transfer import chunked_device_put
 from sgracex1_tpu.utils.profiling import Timer, edges_per_second
 from sgracex1_tpu.utils.power import PowerRecorder, energy_estimate
 
 __all__ = [
-    "chunked_device_put",
     "Timer",
     "edges_per_second",
     "PowerRecorder",

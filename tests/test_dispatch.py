@@ -1,7 +1,4 @@
-"""Aggregation backend dispatch tests (dense / pallas / xla parity).
-
-The pallas backend runs in interpret mode automatically on CPU.
-"""
+"""Aggregation backend dispatch tests (dense / xla parity, the chooser)."""
 
 import jax
 import jax.numpy as jnp
@@ -21,23 +18,13 @@ def _graph(rng, n=260, density=0.05):
     return SparseMatrix.from_scipy(mat), mat
 
 
-@pytest.mark.parametrize("method", ["dense", "xla", "pallas"])
+@pytest.mark.parametrize("method", ["dense", "xla"])
 def test_agg_matmul_parity(rng, method):
     A, mat = _graph(rng)
-    kw = dict(rb=128, cb=128) if method == "pallas" else {}
-    prep = prepare_adjacency(A, method=method, **kw)
+    prep = prepare_adjacency(A, method=method)
     H = rng.standard_normal((A.n_cols, 128)).astype(np.float32)
     out = np.asarray(agg_matmul(prep, jnp.asarray(H)))
     np.testing.assert_allclose(out, mat @ H, rtol=5e-2, atol=5e-2)
-
-
-def test_pallas_backward_matches_transpose(rng):
-    A, mat = _graph(rng, n=200)
-    prep = prepare_adjacency(A, method="pallas", rb=128, cb=128)
-    H = jnp.asarray(rng.standard_normal((A.n_cols, 128)).astype(np.float32))
-    v = rng.standard_normal((A.n_rows, 128)).astype(np.float32)
-    g = jax.grad(lambda h: jnp.vdot(agg_matmul(prep, h), v))(H)
-    np.testing.assert_allclose(np.asarray(g), mat.T @ v, rtol=5e-2, atol=5e-2)
 
 
 def test_auto_selects_dense_for_small(rng):
@@ -56,10 +43,10 @@ def test_dense_backward(rng):
     np.testing.assert_allclose(np.asarray(g), mat.T @ v, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("method", ["pallas", "dense"])
+@pytest.mark.parametrize("method", ["xla", "dense"])
 def test_training_through_prepared_backend(rng, method):
-    """Full flax training step through a PreparedAdjacency backend — pins
-    the custom-VJP integration of the dispatcher in real training."""
+    """Full training step through a PreparedAdjacency backend — pins the
+    dispatcher's integration with the module system in real training."""
     import optax
     from sgracex1_tpu.graph.normalize import sym_norm
     from sgracex1_tpu.nn.models import GCNModel
@@ -67,8 +54,7 @@ def test_training_through_prepared_backend(rng, method):
 
     n = 150
     A = sym_norm(make_random_graph(rng, n), n)
-    kw = dict(rb=128, cb=128) if method == "pallas" else {}
-    prep = prepare_adjacency(A, method=method, **kw)
+    prep = prepare_adjacency(A, method=method)
     x = jnp.asarray(rng.standard_normal((n, 8)).astype(np.float32))
     y = jnp.asarray(rng.integers(0, 3, n).astype(np.int32))
 
@@ -106,284 +92,80 @@ def test_prepared_adjacency_under_jit(rng):
 
 
 def test_auto_cost_model_beyond_dense_budget(rng):
-    """Past the dense byte budget the cost model must pick a sparse
-    backend, and the BSR tile size comes from the tile-population scan."""
+    """Past the dense byte budget the cost model must pick the edge path,
+    even where the dense matmul would model cheaper."""
     from sgracex1_tpu.ops.dispatch import _estimate_backend_costs
 
-    A, _ = _graph(rng, n=2048, density=0.002)
+    A, _ = _graph(rng, n=2048, density=0.02)
+    costs = _estimate_backend_costs(A)
+    assert set(costs) == {"dense", "xla"}
+    assert costs["dense"] < costs["xla"]
+    assert prepare_adjacency(A, method="auto").kind == "dense"
     # force the dense budget below this graph's dense bytes (2048^2 * 2)
     prep = prepare_adjacency(A, method="auto", dense_max_bytes=1 << 20)
-    assert prep.kind in ("bsr", "pallas", "hybrid", "xla")
-    costs, best_tb, best_hy = _estimate_backend_costs(A, jnp.bfloat16)
-    assert set(costs) == {"dense", "bsr", "pallas", "hybrid", "xla"}
-    assert best_tb in (128, 256, 512, 1024)
-    assert best_hy[0] in (128, 256, 512, 1024) and best_hy[1] >= 1
-    assert all(v > 0 for v in costs.values())
+    assert prep.kind == "xla" and prep.dense is None
 
 
-def test_bsr_tb_override(rng):
-    A, mat = _graph(rng)
-    prep = prepare_adjacency(A, method="bsr", tb=128)
-    assert prep.bsr.tb == 128
+@pytest.mark.parametrize(
+    "n,density,expect",
+    [
+        (256, 0.05, "dense"),
+        (1024, 0.01, "dense"),
+        (2048, 0.001, "xla"),
+        (4096, 0.0005, "xla"),
+    ],
+)
+def test_auto_chooser_follows_density(rng, n, density, expect):
+    """The measured cost model sends dense-enough graphs to the dense
+    matmul and sparse ones to the edge path (break-even density =
+    _DENSE_ELT_S / _EDGE_S, about 2.5e-3)."""
+    from sgracex1_tpu.ops.dispatch import _DENSE_ELT_S, _EDGE_S
+
+    A, _ = _graph(rng, n=n, density=density)
+    assert prepare_adjacency(A, method="auto").kind == expect
+    assert (A.nnz / n**2 > _DENSE_ELT_S / _EDGE_S) == (expect == "dense")
+
+
+def test_unknown_method_raises(rng):
+    A, _ = _graph(rng, n=64)
+    for method in ("bsr", "hybrid", "pallas", "fused"):
+        with pytest.raises(ValueError, match="unknown method"):
+            prepare_adjacency(A, method=method)
+
+
+@pytest.mark.parametrize("method", ["dense", "xla"])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_agg_matmul_keeps_feature_dtype(rng, method, dtype):
+    A, mat = _graph(rng, n=200)
+    prep = prepare_adjacency(A, method=method)
+    H = rng.standard_normal((A.n_cols, 48)).astype(np.float32)
+    out = agg_matmul(prep, jnp.asarray(H, dtype))
+    assert out.dtype == dtype and out.shape == (A.n_rows, 48)
+    np.testing.assert_allclose(
+        np.asarray(out, np.float32), mat @ H, rtol=5e-2, atol=1e-1
+    )
+
+
+@pytest.mark.parametrize("method", ["dense", "xla"])
+def test_agg_matmul_backward_matches_transpose(rng, method):
+    A, mat = _graph(rng, n=200)
+    prep = prepare_adjacency(A, method=method)
     H = jnp.asarray(rng.standard_normal((A.n_cols, 32)).astype(np.float32))
-    out = np.asarray(agg_matmul(prep, H))
-    np.testing.assert_allclose(out, mat @ H, rtol=5e-2, atol=5e-2)
-
-
-def _hub_graph(rng, n=2048, hub=128, tail_density=0.0002):
-    """Power-law-shaped adjacency: a dense hub block + a scattered tail —
-    the tile-density structure the hybrid backend targets."""
-    mat = sp.random(
-        n, n, density=tail_density, format="lil", random_state=7
-    ).astype(np.float32)
-    # small values keep bf16 tile-matmul rounding within test tolerances
-    mat[:hub, :hub] = (rng.random((hub, hub)).astype(np.float32) + 0.1) * 0.05
-    mat = mat.tocsr()
-    return SparseMatrix.from_scipy(mat), mat
-
-
-def test_split_by_tile_density_partitions_edges(rng):
-    from sgracex1_tpu.ops.dispatch import split_by_tile_density
-
-    A, mat = _hub_graph(rng)
-    part, rest = split_by_tile_density(A, tb=128, thresh=64)
-    assert part.nnz + rest.nnz == A.nnz
-    assert part.nnz > 0 and rest.nnz > 0  # the hub graph exercises both
-    dense = np.zeros((A.n_rows, A.n_cols), np.float32)
-    for m in (part, rest):
-        r = np.asarray(m.rows[: m.nnz])
-        c = np.asarray(m.cols[: m.nnz])
-        v = np.asarray(m.vals[: m.nnz])
-        dense[r, c] += v
-    np.testing.assert_allclose(dense, mat.toarray(), rtol=1e-6, atol=1e-6)
-
-
-def test_hybrid_agg_parity(rng):
-    A, mat = _hub_graph(rng)
-    # pin tb=128: at the r3-calibrated edge cost (~50 ns at 1M rows) the
-    # auto threshold on this tiny graph would tile every edge, leaving no
-    # rest — the test's point is to exercise BOTH paths
-    prep = prepare_adjacency(A, method="hybrid", tb=128)
-    assert prep.kind == "hybrid"
-    assert prep.rest is not None  # the tail must actually hit the edge path
-    H = rng.standard_normal((A.n_cols, 128)).astype(np.float32)
-    out = np.asarray(agg_matmul(prep, jnp.asarray(H)))
-    np.testing.assert_allclose(out, mat @ H, rtol=5e-2, atol=5e-2)
-
-
-def test_hybrid_backward_matches_transpose(rng):
-    A, mat = _hub_graph(rng)
-    prep = prepare_adjacency(A, method="hybrid", tb=128)
-    H = jnp.asarray(rng.standard_normal((A.n_cols, 128)).astype(np.float32))
-    v = rng.standard_normal((A.n_rows, 128)).astype(np.float32)
+    v = rng.standard_normal((A.n_rows, 32)).astype(np.float32)
     g = jax.grad(lambda h: jnp.vdot(agg_matmul(prep, h), v))(H)
     np.testing.assert_allclose(np.asarray(g), mat.T @ v, rtol=5e-2, atol=5e-2)
 
 
-def test_hybrid_under_jit_as_argument(rng):
-    A, mat = _hub_graph(rng)
-    prep = prepare_adjacency(A, method="hybrid", tb=128)
-    H = jnp.asarray(rng.standard_normal((A.n_cols, 32)).astype(np.float32))
-    out = np.asarray(jax.jit(agg_matmul)(prep, H))
-    np.testing.assert_allclose(out, mat @ H, rtol=5e-2, atol=5e-2)
-
-
-def _symnorm_graph(rng, n=1024, avg_degree=8, fill=0.0):
-    """Unweighted random graph, sym-normalized: values factor as
-    d_r^-1/2 * d_c^-1/2 (rank-1), the structure the mask-tile path needs."""
-    from sgracex1_tpu.graph.normalize import sym_norm
-
-    m = n * avg_degree
-    ei = np.stack([rng.integers(0, n, m), rng.integers(0, n, m)])
-    ei = np.unique(ei, axis=1)
-    A = sym_norm(ei, n, fill=fill)
-    r = np.asarray(A.rows[: A.nnz])
-    c = np.asarray(A.cols[: A.nnz])
-    v = np.asarray(A.vals[: A.nnz])
-    mat = sp.coo_matrix((v, (r, c)), shape=(n, n)).tocsr()
-    return A, mat
-
-
-def test_rank1_bsr_mask_tiles_parity(rng):
-    """Sym-normalized adjacency -> int8 {0,1} mask tiles + diagonal
-    scalings; forward and backward match the scipy reference."""
-    A, mat = _symnorm_graph(rng)
-    prep = prepare_adjacency(A, method="bsr", tb=128)
-    assert prep.r1_row is not None and prep.r1_col is not None
-    assert prep.bsr.tiles.dtype == jnp.int8
-    H = jnp.asarray(rng.standard_normal((A.n_cols, 64)).astype(np.float32))
-    out = np.asarray(agg_matmul(prep, H))
-    np.testing.assert_allclose(out, mat @ np.asarray(H), rtol=5e-2, atol=5e-2)
-    v = rng.standard_normal((A.n_rows, 64)).astype(np.float32)
-    g = jax.grad(lambda h: jnp.vdot(agg_matmul(prep, h), v))(H)
-    np.testing.assert_allclose(np.asarray(g), mat.T @ v, rtol=5e-2, atol=5e-2)
-
-
-def test_rank1_hybrid_parity(rng):
-    A, mat = _symnorm_graph(rng, n=2048, avg_degree=16)
-    prep = prepare_adjacency(A, method="hybrid")
-    assert prep.kind == "hybrid" and prep.r1_row is not None
-    # mask tiles: int8 {0,1}, or 1-bit packed uint8 when tb is lane-aligned
-    assert prep.bsr.tiles.dtype in (jnp.int8, jnp.uint8)
-    if prep.bsr.tiles.dtype == jnp.uint8:
-        assert prep.bsr.tiles.shape[-1] == prep.bsr.tb // 8
-    H = jnp.asarray(rng.standard_normal((A.n_cols, 64)).astype(np.float32))
-    out = np.asarray(jax.jit(agg_matmul)(prep, H))
-    np.testing.assert_allclose(out, mat @ np.asarray(H), rtol=5e-2, atol=5e-2)
-
-
-def test_rank1_hybrid_rest_mask_space_scatter(rng):
-    """The hybrid rest edges scatter in MASK space (unit values, before the
-    row scaling — r3): forward and gradient must match scipy. (fill=0
-    zero-valued loops do NOT refuse the rank-1 verify — rank1_factor
-    exempts zero-valued edges — so a zero-valued loop landing in rest must
-    be dropped at prepare time; see
-    test_rank1_hybrid_zero_fill_loops_in_rest.)"""
-    # sparse off-diagonal tiles (~4 edges each) fall below the tb=128
-    # threshold while the self-loop diagonal tiles stay dense -> real rest
-    A, mat = _symnorm_graph(rng, n=4096, avg_degree=2, fill=1.0)
-    prep = prepare_adjacency(A, method="hybrid", tb=128)
-    assert prep.kind == "hybrid" and prep.r1_row is not None
-    assert prep.rest is not None and prep.rest.nnz > 0
-    H = jnp.asarray(rng.standard_normal((A.n_cols, 64)).astype(np.float32))
-    out = np.asarray(jax.jit(agg_matmul)(prep, H))
-    np.testing.assert_allclose(out, mat @ np.asarray(H), rtol=5e-2, atol=5e-2)
-    v = rng.standard_normal((A.n_rows, 64)).astype(np.float32)
-    g = jax.grad(lambda h: jnp.vdot(agg_matmul(prep, h), v))(H)
-    np.testing.assert_allclose(np.asarray(g), mat.T @ v, rtol=5e-2, atol=5e-2)
-
-
-def test_build_transpose_false_inference_only(rng):
-    """Inference-only prep (build_transpose=False): forward parity holds
-    with half the tile memory, and the backward raises a clear error
-    instead of silently producing garbage."""
-    A, mat = _symnorm_graph(rng)
-    prep = prepare_adjacency(A, method="bsr", tb=128, build_transpose=False)
-    assert prep.bsr is not None and prep.bsr_t is None
-    H = jnp.asarray(rng.standard_normal((A.n_cols, 64)).astype(np.float32))
-    out = np.asarray(agg_matmul(prep, H))
-    np.testing.assert_allclose(out, mat @ np.asarray(H), rtol=5e-2, atol=5e-2)
-    with pytest.raises(ValueError, match="build_transpose"):
-        jax.grad(lambda h: jnp.sum(agg_matmul(prep, h)))(H)
-
-
-def test_rank1_hybrid_zero_fill_loops_in_rest(rng):
-    """Regression (r3 advisor, high): a fill=0 zero-valued self-loop that
-    lands in the hybrid REST (n not a multiple of tb, so the partial
-    diagonal tile falls below the density threshold) must not be scattered
-    as a unit-valued mask edge — its true contribution to A @ H is zero.
-    prepare_adjacency now drops zero-valued rest edges host-side."""
-    A, mat = _symnorm_graph(rng, n=2048 + 6, avg_degree=16, fill=0.0)
-    assert (np.asarray(A.vals[: A.nnz]) == 0).any()
-    prep = prepare_adjacency(A, method="hybrid", tb=128)
-    assert prep.kind == "hybrid" and prep.r1_row is not None
-    assert prep.rest is not None and prep.rest.nnz > 0
-    # every surviving rest edge is positive (unit-valued in mask space)
-    assert (np.asarray(prep.rest.vals[: prep.rest.nnz]) != 0).all()
-    H = jnp.asarray(rng.standard_normal((A.n_cols, 64)).astype(np.float32))
-    out = np.asarray(jax.jit(agg_matmul)(prep, H))
-    np.testing.assert_allclose(out, mat @ np.asarray(H), rtol=5e-2, atol=5e-2)
-    v = rng.standard_normal((A.n_rows, 64)).astype(np.float32)
-    g = jax.grad(lambda h: jnp.vdot(agg_matmul(prep, h), v))(H)
-    np.testing.assert_allclose(np.asarray(g), mat.T @ v, rtol=5e-2, atol=5e-2)
-
-
-def test_rank1_zero_fill_self_loops_drop_from_mask(rng):
-    """fill=0 self-loops have value 0 == no contribution; the mask tiles
-    must drop them, not aggregate them as 1s."""
-    A, mat = _symnorm_graph(rng, fill=0.0)
-    assert (np.asarray(A.vals[: A.nnz]) == 0).any()  # zero loops present
-    prep = prepare_adjacency(A, method="bsr", tb=128)
-    assert prep.r1_row is not None
-    H = jnp.asarray(rng.standard_normal((A.n_cols, 32)).astype(np.float32))
-    out = np.asarray(agg_matmul(prep, H))
-    np.testing.assert_allclose(out, mat @ np.asarray(H), rtol=5e-2, atol=5e-2)
-
-
-def test_rank1_disabled_keeps_value_tiles(rng):
-    A, _ = _symnorm_graph(rng)
-    prep = prepare_adjacency(A, method="bsr", tb=128, rank1=False)
-    assert prep.r1_row is None
-    assert prep.bsr.tiles.dtype == jnp.bfloat16
-
-
-def test_map_adjacency_vals_degrades_rank1_to_edge_path(rng):
-    """Remapping values on a rank-1 mask-tile backend cannot keep the {0,1}
-    tiles; it must warn and fall back to the (correct) edge path rather
-    than raise at trace time."""
+@pytest.mark.parametrize("method", ["dense", "xla"])
+def test_map_adjacency_vals_remaps_every_representation(rng, method):
     from sgracex1_tpu.ops.dispatch import map_adjacency_vals
 
-    A, mat = _symnorm_graph(rng)
-    prep = prepare_adjacency(A, method="bsr", tb=128)
-    with pytest.warns(UserWarning, match="rank1=False"):
-        mapped = map_adjacency_vals(prep, lambda v: v * 2.0)
-    assert mapped.kind == "xla" and mapped.r1_row is None
-    H = jnp.asarray(rng.standard_normal((A.n_cols, 32)).astype(np.float32))
-    out = np.asarray(agg_matmul(mapped, H))
-    np.testing.assert_allclose(
-        out, 2.0 * (mat @ np.asarray(H)), rtol=5e-2, atol=5e-2
+    A, mat = _graph(rng, n=150)
+    prep = map_adjacency_vals(
+        prepare_adjacency(A, method=method, dense_dtype=jnp.float32),
+        lambda v: v * 2.0,
     )
-    # the documented escape hatch keeps tile aggregation
-    prep = prepare_adjacency(A, method="bsr", tb=128, rank1=False)
-    assert map_adjacency_vals(prep, lambda v: v * 2.0).kind == "bsr"
-
-
-def test_auto_picks_hybrid_on_hub_tail_structure(rng):
-    """On a graph whose edges split into a few dense tiles plus a scattered
-    tail, the cost model must rank hybrid ahead of pure bsr and xla."""
-    from sgracex1_tpu.ops.dispatch import _estimate_backend_costs
-
-    A, _ = _hub_graph(rng, n=4096, hub=256, tail_density=0.0001)
-    costs, _, _ = _estimate_backend_costs(A, jnp.bfloat16)
-    assert costs["hybrid"] < costs["bsr"]
-    assert costs["hybrid"] < costs["xla"]
-
-
-def test_for_gat_attaches_full_mask_on_hybrid(rng):
-    """flash_tiles must always cover the FULL adjacency — the hybrid
-    backend's partial value tiles are not a valid attention mask."""
-    A, _ = _hub_graph(rng)
-    prep = prepare_adjacency(A, method="hybrid", for_gat=True)
-    assert prep.gat_bsr is not None
-    assert prep.flash_tiles is prep.gat_bsr
-    # every edge present in the mask tiles
-    nnz_mask = int(jnp.sum(prep.gat_bsr.tiles > 0))
-    assert nnz_mask == A.nnz
-
-
-def test_choose_flash_tb_regimes(rng):
-    """Small graphs -> tb=256 int8; mid graphs with few big tiles ->
-    tb=1024 (grid-step overhead dominates); past the int8 budget ->
-    packed tb=1024 capacity mode."""
-    from sgracex1_tpu.ops import dispatch as dm
-
-    # tiny graph: fixed small-tile fast path
-    A, _ = _symnorm_graph(rng, n=1024)
-    assert dm._choose_flash_tb(A, 1024) == (256, False)
-    # banded mid graph: the model runs; any returned int8 tb is one of
-    # the candidates and within budget
-    A2, _ = _symnorm_graph(rng, n=20000, avg_degree=8)
-    tb, packed = dm._choose_flash_tb(A2, 20000)
-    assert tb in (256, 512, 1024) and not packed
-    # force the budget to zero: only the packed capacity mode remains
-    orig = dm._FLASH_TILE_BUDGET
-    try:
-        dm._FLASH_TILE_BUDGET = 0
-        assert dm._choose_flash_tb(A2, 20000) == (1024, True)
-    finally:
-        dm._FLASH_TILE_BUDGET = orig
-
-
-def test_fuse_opt_out_keeps_f32_precision(rng):
-    """prepare_adjacency(fuse=False): no fused schedules; agg_matmul runs
-    the f32-accumulating tile+rest composition (the advisor-documented
-    bf16 opt-out for f32 training consumers)."""
-    A, mat = _hub_graph(rng)
-    prep = prepare_adjacency(A, method="hybrid", fuse=False)
-    assert prep.fused is None and prep.fused_t is None
-    H = jnp.asarray(rng.standard_normal((A.n_cols, 64)).astype(np.float32))
-    out = agg_matmul(prep, H)
-    assert out.dtype == jnp.float32
-    np.testing.assert_allclose(
-        np.asarray(out), mat @ np.asarray(H), rtol=2e-2, atol=2e-2
-    )
+    assert prep.kind == method
+    H = rng.standard_normal((A.n_cols, 16)).astype(np.float32)
+    out = np.asarray(agg_matmul(prep, jnp.asarray(H)))
+    np.testing.assert_allclose(out, 2.0 * (mat @ H), rtol=1e-4, atol=1e-4)

@@ -62,33 +62,6 @@ def test_sym_norm_sparse_container(random_graph):
     assert A.nnz >= random_graph.shape[1]
 
 
-def test_rank1_factor_recovers_sym_norm(random_graph):
-    from sgracex1_tpu.graph.normalize import rank1_factor
-
-    A = sym_norm(random_graph, 64)
-    fac = rank1_factor(A)
-    assert fac is not None
-    s_r, s_c = fac
-    r = np.asarray(A.rows[: A.nnz])
-    c = np.asarray(A.cols[: A.nnz])
-    v = np.asarray(A.vals[: A.nnz])
-    pos = v > 0
-    np.testing.assert_allclose(s_r[r[pos]] * s_c[c[pos]], v[pos], rtol=1e-5)
-
-
-def test_rank1_factor_rejects_unstructured(rng):
-    from sgracex1_tpu.graph.normalize import rank1_factor
-
-    m = sp.random(64, 64, density=0.1, format="csr", random_state=5).astype(
-        np.float32
-    )
-    m.data[:] = rng.random(len(m.data)).astype(np.float32) + 0.1
-    assert rank1_factor(SparseMatrix.from_scipy(m)) is None
-    # negative values can never factor through positive scales
-    m.data[0] = -1.0
-    assert rank1_factor(SparseMatrix.from_scipy(m)) is None
-
-
 def test_load_csr_text(tmp_path):
     p = tmp_path / "m.txt"
     p.write_text("0,2,3,3\n0,2,1\n1.5,2.5,3.5\n")

@@ -77,133 +77,6 @@ def test_halo_gradients_match(rng):
     )
 
 
-@pytest.mark.parametrize("n_dev", [2, 4])
-def test_halo_bsr_matches_edge_path(rng, n_dev):
-    """The MXU tile-kernel local aggregation (HaloBSRPlan) reproduces the
-    gather/segment-sum halo layer, forward and backward."""
-    from sgracex1_tpu.parallel.halo import (
-        build_halo_bsr,
-        dist_gnn_layer_halo_bsr,
-        dist_spmm_halo_bsr,
-    )
-
-    n, f, h = 96, 12, 8
-    A, G, mesh, H, H_d, n_pad = _setup(rng, n, n_dev, f=f)
-    # G was device_put; build the plan from a host copy
-    G_host = jax.tree.map(np.asarray, G)
-    BP = build_halo_bsr(G_host, tb=8, dtype=jnp.float32)
-    BP = jax.device_put(BP, NamedSharding(mesh, P("graph")))
-
-    out = np.asarray(
-        jax.jit(lambda hh: dist_spmm_halo_bsr(mesh, G, BP, hh))(H_d)
-    )[:n]
-    expect = np.asarray(spmm(A, jnp.asarray(H)))
-    np.testing.assert_allclose(out, expect, rtol=2e-2, atol=2e-2)  # bf16
-
-    W = jnp.asarray(rng.standard_normal((f, h)).astype(np.float32) * 0.3)
-
-    def loss_bsr(xv, Wv):
-        return jnp.sum(
-            dist_gnn_layer_halo_bsr(mesh, G, BP, xv, Wv, relu=True) ** 2
-        )
-
-    def loss_edge(xv, Wv):
-        return jnp.sum(dist_gnn_layer_halo(mesh, G, xv, Wv, relu=True) ** 2)
-
-    gb = jax.grad(loss_bsr, argnums=(0, 1))(H_d, W)
-    ge = jax.grad(loss_edge, argnums=(0, 1))(H_d, W)
-    for a, b in zip(gb, ge):
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), rtol=2e-2, atol=2e-2
-        )
-
-
-@pytest.mark.parametrize("n_dev,nheads", [(2, 1), (4, 2)])
-def test_halo_gat_flash_matches_edge_path(rng, n_dev, nheads):
-    """Distributed flash GAT (local tiles + stats-merged halo edges)
-    reproduces the edge-path halo GAT layer."""
-    from sgracex1_tpu.parallel.halo import (
-        build_halo_bsr,
-        dist_gat_layer_halo,
-        dist_gat_layer_halo_flash,
-    )
-
-    n, f, F = 96, 12, 8
-    A, G, mesh, X, X_d, n_pad = _setup(rng, n, n_dev, f=f)
-    G_host = jax.tree.map(np.asarray, G)
-    BP = build_halo_bsr(G_host, tb=8, dtype=jnp.float32)
-    BP = jax.device_put(BP, NamedSharding(mesh, P("graph")))
-    W = jnp.asarray(
-        rng.standard_normal((f, F * nheads)).astype(np.float32) * 0.3
-    )
-    att = jnp.asarray(
-        rng.standard_normal((2 * F * nheads, 1)).astype(np.float32) * 0.3
-    )
-
-    out = np.asarray(
-        jax.jit(
-            lambda xv: dist_gat_layer_halo_flash(
-                mesh, G, BP, xv, W, att, nheads=nheads, relu=True
-            )
-        )(X_d)
-    )[:n]
-    ref = np.asarray(
-        jax.jit(
-            lambda xv: dist_gat_layer_halo(
-                mesh, G, xv, W, att, nheads=nheads, relu=True
-            )
-        )(X_d)
-    )[:n]
-    np.testing.assert_allclose(out, ref, rtol=2e-2, atol=2e-2)  # bf16
-
-
-@pytest.mark.parametrize("n_dev,nheads", [(2, 1), (4, 2)])
-def test_halo_gat_flash_gradients_match(rng, n_dev, nheads):
-    """Fused distributed GAT TRAINING: gradients of the flash layer (tile
-    kernels both directions + merged-stats backward + all_to_all transpose)
-    match the edge-path halo GAT layer for x, W, and attention params."""
-    from sgracex1_tpu.parallel.halo import (
-        build_halo_bsr,
-        dist_gat_layer_halo,
-        dist_gat_layer_halo_flash,
-    )
-
-    n, f, F = 96, 12, 8
-    A, G, mesh, X, X_d, n_pad = _setup(rng, n, n_dev, f=f)
-    G_host = jax.tree.map(np.asarray, G)
-    BP = build_halo_bsr(G_host, tb=8, dtype=jnp.float32)
-    BP = jax.device_put(BP, NamedSharding(mesh, P("graph")))
-    W = jnp.asarray(
-        rng.standard_normal((f, F * nheads)).astype(np.float32) * 0.3
-    )
-    att = jnp.asarray(
-        rng.standard_normal((2 * F * nheads, 1)).astype(np.float32) * 0.3
-    )
-
-    def loss_flash(xv, Wv, av):
-        out = dist_gat_layer_halo_flash(
-            mesh, G, BP, xv, Wv, av, nheads=nheads, relu=True
-        )
-        return jnp.sum(out**2)
-
-    def loss_edge(xv, Wv, av):
-        out = dist_gat_layer_halo(
-            mesh, G, xv, Wv, av, nheads=nheads, relu=True
-        )
-        return jnp.sum(out**2)
-
-    gf = jax.grad(loss_flash, argnums=(0, 1, 2))(X_d, W, att)
-    ge = jax.grad(loss_edge, argnums=(0, 1, 2))(X_d, W, att)
-    # bf16 MXU matmuls inside the tile kernels vs the f32 edge path; the
-    # hand-written VJP itself is autodiff-exact (see
-    # test_flash_gat.test_halo_agg_vjp_matches_autodiff)
-    for a, b, name in zip(gf, ge, ("x", "W", "att")):
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), rtol=2e-2, atol=4e-2,
-            err_msg=f"grad mismatch for {name}",
-        )
-
-
 @pytest.mark.parametrize("n_dev", [2, 8])
 def test_halo_gat_matches_single(rng, n_dev):
     from sgracex1_tpu.ops.fused_gnn import gat_layer
@@ -265,44 +138,3 @@ def test_halo_handles_no_remote_edges(rng):
     )
     expect = np.asarray(spmm(A, jnp.asarray(H[:n])))
     np.testing.assert_allclose(out[:n], expect, rtol=1e-5, atol=1e-5)
-
-
-@pytest.mark.parametrize("tb,expect_dtype", [(8, "int8"), (1024, "uint8")])
-def test_halo_bsr_mask_tiles(rng, tb, expect_dtype):
-    """build_halo_bsr(mask=True): int8 {0,1} tiles (or 1-bit packed when
-    tb/8 is lane-aligned) — the capacity form the distributed flash-GAT
-    layer needs at scale; parity with the value-tile plan."""
-    import jax.numpy as jnp
-
-    from sgracex1_tpu.parallel.halo import (
-        build_halo_bsr,
-        dist_gat_layer_halo_flash,
-    )
-
-    n, n_dev, f, F = (96, 2, 12, 8) if tb == 8 else (4096, 2, 12, 8)
-    A, G, mesh, X, X_d, n_pad = _setup(rng, n, n_dev, f=f)
-    G_host = jax.tree.map(np.asarray, G)
-    BPm = build_halo_bsr(G_host, tb=tb, mask=True)
-    assert str(BPm.tiles.dtype) == expect_dtype
-    if expect_dtype == "uint8":
-        assert BPm.tiles.shape[-1] == tb // 8
-    BPv = build_halo_bsr(G_host, tb=tb, dtype=jnp.float32)
-    W = jnp.asarray(rng.standard_normal((f, F)).astype(np.float32) * 0.3)
-    att = jnp.asarray(
-        rng.standard_normal((2 * F, 1)).astype(np.float32) * 0.3
-    )
-    out_m = np.asarray(
-        jax.jit(
-            lambda xv: dist_gat_layer_halo_flash(
-                mesh, G, BPm, xv, W, att, relu=True
-            )
-        )(X_d)
-    )[:n]
-    out_v = np.asarray(
-        jax.jit(
-            lambda xv: dist_gat_layer_halo_flash(
-                mesh, G, BPv, xv, W, att, relu=True
-            )
-        )(X_d)
-    )[:n]
-    np.testing.assert_allclose(out_m, out_v, rtol=2e-2, atol=2e-2)

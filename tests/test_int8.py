@@ -68,7 +68,7 @@ def test_subbyte_layer_close_to_float(qbits):
     """True integer inference at 4/2 bits: operands are constrained to the
     2^qbits grid (the reference's adaptive-quantization widths,
     matrix_mult.h:166-183 / sgrace.py:70-92) and the arithmetic runs on the
-    int8 MXU — sub-byte values are exact in int8, so this IS the q-bit
+    int8 dot — sub-byte values are exact in int8, so this IS the q-bit
     integer datapath. Looser closeness bound at narrower widths."""
     rng = np.random.default_rng(2)
     n, f, p = 64, 32, 16
@@ -89,7 +89,7 @@ def test_subbyte_layer_close_to_float(qbits):
     a_s = qi8.dense_adjacency_int8(A, c_a)
     acc, scale = jax.jit(qi8.int8_gcn_layer)(layer, a_s, xs)
 
-    # exact integer self-consistency: the TPU pipeline must equal a numpy
+    # exact integer self-consistency: the int8 pipeline must equal a numpy
     # simulation over the same q-bit integer operands at any width
     Xq = np.asarray(xs).astype(np.int64) + 128
     Aq = np.asarray(a_s).astype(np.int64) + 128
@@ -204,31 +204,53 @@ def _banded_graph(rng, n, extra=2000):
     return sym_norm(ei, n)
 
 
-def test_bsr_int8_spmm_exact():
-    """bsr_spmm_int8 == the exact integer product of the quantized grids
-    (per-tile shift correction included)."""
-    from sgracex1_tpu.ops.bsr import bsr_spmm_int8
-
-    rng = np.random.default_rng(3)
-    n = 700
-    A = _banded_graph(rng, n, extra=400)
-    c_a = _uc(float(np.asarray(A.vals).max()) or 1.0)
-    B = qi8.bsr_int8_from_sparse(A, c_a, tb=128)
-    hq = rng.integers(-127, 128, (n, 32)).astype(np.int8)
-    acc = np.asarray(bsr_spmm_int8(B, jnp.asarray(hq)))[:n]
-    # exact integer reference on the quantized adjacency
-    v = np.asarray(A.vals[: A.nnz])
-    aq = np.clip(np.round(v / c_a.s + c_a.z), 0, c_a.beta_q)
+def _exact_int_ref(A, c_a, hq):
+    """Exact integer Aq @ Hq on the quantized adjacency (scipy, int64)."""
     import scipy.sparse as sp
 
+    n = A.n_rows
+    v = np.asarray(A.vals[: A.nnz])
+    aq = np.clip(np.round(v / c_a.s + c_a.z), 0, c_a.beta_q)
     r = np.asarray(A.rows[: A.nnz])
     c = np.asarray(A.cols[: A.nnz])
-    mat = sp.coo_matrix((aq, (r, c)), shape=(n, n)).tocsr()
-    np.testing.assert_array_equal(acc, (mat @ hq.astype(np.int64)))
+    mat = sp.coo_matrix((aq, (r, c)), shape=(n, A.n_cols)).tocsr()
+    return mat @ np.asarray(hq, np.int64)
+
+
+@pytest.mark.parametrize("n,P,extra", [(700, 32, 400), (1500, 8, 3000),
+                                        (300, 128, 0)])
+def test_int8_spmm_exact(n, P, extra):
+    """int8_spmm == the exact integer product of the quantized grids."""
+    rng = np.random.default_rng(3)
+    A = _banded_graph(rng, n, extra=extra)
+    c_a = _uc(float(np.asarray(A.vals).max()) or 1.0)
+    Aq = qi8.sparse_adjacency_int8(A, c_a)
+    hq = rng.integers(-128, 128, (n, P)).astype(np.int8)
+    acc = jax.jit(qi8.int8_spmm)(Aq, jnp.asarray(hq))
+    assert acc.dtype == jnp.int32
+    np.testing.assert_array_equal(np.asarray(acc), _exact_int_ref(A, c_a, hq))
+
+
+def test_int8_spmm_ignores_padding_edges():
+    """Padding edges carry value 0 and must add nothing."""
+    from sgracex1_tpu.graph.csr import SparseMatrix
+
+    rng = np.random.default_rng(5)
+    r = np.array([0, 1, 2, 2])
+    c = np.array([1, 2, 0, 2])
+    A = SparseMatrix.from_coo(r, c, np.ones(4, np.float32), (3, 3),
+                              pad_to=128)
+    assert A.e_pad > A.nnz
+    Aq = qi8.sparse_adjacency_int8(A, _uc(1.0))
+    hq = rng.integers(-128, 128, (3, 4)).astype(np.int8)
+    np.testing.assert_array_equal(
+        np.asarray(qi8.int8_spmm(Aq, jnp.asarray(hq))),
+        _exact_int_ref(A, _uc(1.0), hq),
+    )
 
 
 def test_int8_gcn2_sparse_matches_dense_and_float():
-    """Sparse-tile full-integer 2-layer GCN == the dense int8 form exactly,
+    """Sparse full-integer 2-layer GCN == the dense int8 form exactly,
     and both track the float forward — at a size past nothing, but the
     same code path runs at pubmed/1M scale (no dense N x N)."""
     rng = np.random.default_rng(4)
@@ -246,7 +268,7 @@ def test_int8_gcn2_sparse_matches_dense_and_float():
              f_min=0.0, f_max=1.0, a_min=0.0,
              a_max=float(np.asarray(A.vals).max()) or 1.0),
     )
-    net_s = qi8.freeze_gcn2_sparse(W1, W2, A, cal, tb=128, **amax)
+    net_s = qi8.freeze_gcn2_sparse(W1, W2, A, cal, **amax)
     out_s = np.asarray(qi8.int8_gcn2_sparse_forward(net_s, jnp.asarray(
         np.asarray(qi8.quantize_unsigned_shifted(jnp.asarray(X), cal.features))
     )))[:n]
@@ -263,78 +285,59 @@ def test_int8_gcn2_sparse_matches_dense_and_float():
     assert err < 0.08, err
 
 
-def test_int8_gat_flash_close_to_edge_path(rng):
-    """int8 GAT with flash-tile aggregation tracks the per-edge int8 GAT
-    (same quantized operands, different aggregation engine)."""
-    from sgracex1_tpu.ops.bsr import bsr_mask_from_sparse
-
-    n, f, p = 900, 16, 8
-    A = _banded_graph(rng, n, extra=800)
-    X = rng.uniform(0, 1, (n, f)).astype(np.float32)
-    W = rng.uniform(-0.5, 0.5, (f, p)).astype(np.float32)
-    att = rng.uniform(-0.5, 0.5, (2 * p, 1)).astype(np.float32)
-    c_x, c_w = _uc(1.0), _sc(0.5)
-    layer = qi8.freeze_gat_layer(W, att, c_x, c_w, h_absmax=4.0)
-    xs = qi8.quantize_unsigned_shifted(jnp.asarray(X), c_x)
-
-    acc_e, sc_e = qi8.int8_gat_layer(
-        layer, jnp.asarray(A.rows), jnp.asarray(A.cols),
-        jnp.asarray(A.vals) > 0, n, xs,
-    )
-    out_e = np.asarray(acc_e, dtype=np.float64) * sc_e
-
-    B = bsr_mask_from_sparse(A, tb=128)
-    acc_f, sc_f = qi8.int8_gat_layer_flash(layer, B, xs)
-    out_f = np.asarray(acc_f, dtype=np.float64) * sc_f
-
-    denom = np.abs(out_e).max() + 1e-9
-    assert np.abs(out_f - out_e).max() / denom < 0.03
-
-
 def test_int8_hybrid_fused_exact(rng):
-    """Hybrid full-integer aggregation (shifted-int8 tiles + quantized
-    remainder chunks in one fused schedule) is EXACT integer math — the
-    capability that runs the quantized engine at 2^20+ scale where a
-    full-adjacency int8 tile set cannot fit."""
+    """Full-integer aggregation of a hub-and-tail graph (a dense 256-node
+    hub block plus a scattered tail) is EXACT integer math on the edge
+    path — the shape that needed a tile+remainder schedule before."""
     import scipy.sparse as sp
 
     from sgracex1_tpu.graph.csr import SparseMatrix
-    from sgracex1_tpu.ops.dispatch import split_by_tile_density
 
     n, f = 1600, 64
-    # dense hub block + scattered tail -> a real hybrid split at tb=128
     mat = sp.random(n, n, density=0.001, format="lil",
                     random_state=11).astype(np.float32)
     mat[:256, :256] = rng.uniform(0.1, 1.0, (256, 256)).astype(np.float32)
-    mat = mat.tocsr()
-    A = SparseMatrix.from_scipy(mat)
+    A = SparseMatrix.from_scipy(mat.tocsr())
     c_a = _uc(1.0)
-    plan = qi8.prepare_int8_hybrid(A, c_a, tb=128, K=128)
-    assert plan.num_rest_chunks > 0  # the tail must hit the chunk path
-
     X = rng.uniform(0, 1, (n, f)).astype(np.float32)
     xs = qi8.quantize_unsigned_shifted(jnp.asarray(X), _uc(1.0))
-    acc = np.asarray(qi8.int8_hybrid_agg(plan, xs))[:n]
+    acc = np.asarray(qi8.int8_spmm(qi8.sparse_adjacency_int8(A, c_a), xs))
+    np.testing.assert_array_equal(acc, _exact_int_ref(A, c_a, xs))
 
-    # exact integer reference
-    v = np.asarray(A.vals[: A.nnz])
-    aq = np.clip(np.round(v / c_a.s + c_a.z), 0, c_a.beta_q)
-    r = np.asarray(A.rows[: A.nnz])
-    c = np.asarray(A.cols[: A.nnz])
-    mat_q = sp.coo_matrix((aq, (r, c)), shape=(n, n)).tocsr()
-    expect = mat_q @ np.asarray(xs, dtype=np.int64)
-    np.testing.assert_array_equal(acc, expect)
 
-    # sliced schedules stay exact too
-    import sgracex1_tpu.ops.fused_agg as fa
+@pytest.mark.parametrize("shape", [(7, 5, 3), (64, 128, 32), (300, 17, 9)])
+def test_matmul_unsigned_x_signed_exact_shapes(shape):
+    """The shift identity Uq @ S = Us @ S + 128 * colsum(S) is exact int32
+    at any shape (XLA's integer dot, no float rounding anywhere)."""
+    m, k, n = shape
+    rng = np.random.default_rng(m)
+    us = rng.integers(-128, 128, (m, k)).astype(np.int8)
+    sq = rng.integers(-127, 128, (k, n)).astype(np.int8)
+    acc = jax.jit(qi8.matmul_unsigned_x_signed)(jnp.asarray(us),
+                                               jnp.asarray(sq))
+    assert acc.dtype == jnp.int32
+    ref = (us.astype(np.int64) + 128) @ sq.astype(np.int64)
+    np.testing.assert_array_equal(np.asarray(acc), ref)
 
-    if plan.num_steps > 6:
-        orig = fa._MAX_STEPS
-        try:
-            fa._MAX_STEPS = 6
-            slices_plan = qi8.prepare_int8_hybrid(A, c_a, tb=128, K=128)
-        finally:
-            fa._MAX_STEPS = orig
-        assert len(slices_plan.slices) > 1
-        acc2 = np.asarray(qi8.int8_hybrid_agg(slices_plan, xs))[:n]
-        np.testing.assert_array_equal(acc2, expect)
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_int8_gcn_layer_sparse_equals_dense(seed):
+    """One full-integer layer: the sparse edge-path aggregation and the
+    dense int8 dot give the identical int32 accumulator and scale."""
+    rng = np.random.default_rng(seed)
+    n, f, h = 200, 12, 6
+    A = _banded_graph(rng, n, extra=300)
+    c_a = _uc(float(np.asarray(A.vals).max()))
+    W = rng.uniform(-0.5, 0.5, (f, h)).astype(np.float32)
+    layer = qi8.freeze_gcn_layer(W, _uc(1.0), _sc(0.5), c_a, h_absmax=3.0)
+    xs = qi8.quantize_unsigned_shifted(
+        jnp.asarray(rng.uniform(0, 1, (n, f)).astype(np.float32)), _uc(1.0)
+    )
+    acc_s, sc_s = qi8.int8_gcn_layer_sparse(
+        layer, qi8.sparse_adjacency_int8(A, c_a), xs
+    )
+    acc_d, sc_d = qi8.int8_gcn_layer(
+        layer, qi8.dense_adjacency_int8(A.to_dense(), c_a), xs
+    )
+    assert sc_s == sc_d
+    np.testing.assert_array_equal(np.asarray(acc_s), np.asarray(acc_d))

@@ -1,7 +1,7 @@
 """Native C++ host runtime vs pure-Python spec parity.
 
 The Python implementations in graph/io.py, graph/normalize.py and
-ops/pallas_spmm.py are the spec; csrc/sgrace_host.cpp must match them
+graph/reorder.py are the spec; csrc/sgrace_host.cpp must match them
 bit-for-bit on integers and to float32 rounding on values.
 """
 
@@ -117,37 +117,6 @@ def test_sym_norm_no_weights():
     ei_p, w_p = normalize.sym_norm_edges(ei, 3, None, 1.0)
     np.testing.assert_array_equal(ei_n, ei_p)
     np.testing.assert_allclose(w_n, w_p, rtol=1e-6)
-
-
-def test_plan_tiles_parity():
-    from sgracex1_tpu.graph.csr import SparseMatrix
-    from sgracex1_tpu.ops import pallas_spmm
-
-    rng = np.random.default_rng(2)
-    n = 300
-    dense = (rng.uniform(size=(n, n)) < 0.02).astype(np.float32)
-    dense *= rng.uniform(0.5, 1.5, (n, n)).astype(np.float32)
-    A = SparseMatrix.from_dense(dense)
-
-    kw = dict(rb=128, cb=128, be=1024)
-    os.environ["SGRACE_NATIVE"] = "0"
-    try:
-        plan_py = pallas_spmm.plan_spmm(A, **kw)
-    finally:
-        os.environ["SGRACE_NATIVE"] = "1"
-    # native.available() caches the lib handle, so flipping the env var back
-    # re-enables the fast path for this call
-    plan_nat = pallas_spmm.plan_spmm(A, **kw)
-
-    for f in ("lrow", "lcol", "perm", "tile_rb", "tile_cb"):
-        np.testing.assert_array_equal(
-            np.asarray(getattr(plan_nat, f)), np.asarray(getattr(plan_py, f)),
-            err_msg=f,
-        )
-    np.testing.assert_allclose(
-        np.asarray(plan_nat.val), np.asarray(plan_py.val)
-    )
-    assert plan_nat.nnz == plan_py.nnz
 
 
 def test_partition_balance():

@@ -24,28 +24,6 @@ def test_spmm_matches_scipy(rng):
     np.testing.assert_allclose(np.asarray(spmm(A, H)), mat @ H, rtol=1e-5, atol=1e-5)
 
 
-def test_spmm_into_matches_add_and_differentiates(rng):
-    A, mat = _rand_sparse(rng, 50, 70)
-    H = rng.standard_normal((70, 16)).astype(np.float32)
-    base = rng.standard_normal((50, 16)).astype(np.float32)
-    from sgracex1_tpu.ops.spmm import spmm_into
-
-    np.testing.assert_allclose(
-        np.asarray(spmm_into(A, jnp.asarray(H), jnp.asarray(base))),
-        base + mat @ H,
-        rtol=1e-5,
-        atol=1e-5,
-    )
-    # native autodiff: d/dH sum(out) == A^T @ ones (scatter-add gradient)
-    gH = jax.grad(lambda h: jnp.sum(spmm_into(A, h, jnp.asarray(base))))(
-        jnp.asarray(H)
-    )
-    np.testing.assert_allclose(
-        np.asarray(gH), mat.T @ np.ones((50, 16), np.float32), rtol=1e-5,
-        atol=1e-5,
-    )
-
-
 def test_spmm_t_matches_scipy(rng):
     A, mat = _rand_sparse(rng, 50, 70)
     H = rng.standard_normal((50, 16)).astype(np.float32)

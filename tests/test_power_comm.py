@@ -1,5 +1,5 @@
 """Power recording (DataRecorder analogue, demo_sgrace.py:158-168) and the
-ICI comm-volume scaling model (BASELINE.md scaling-target evidence)."""
+interconnect comm-volume scaling model (BASELINE.md scaling target)."""
 
 import time
 
@@ -67,14 +67,43 @@ class TestEnergyModel:
         assert half["joules"] == pytest.approx(130.0 * 2)
 
     def test_utilization_clamped(self):
-        assert energy_estimate(1.0, 7.5)["utilization"] == 1.0
-        assert energy_estimate(1.0, -1.0)["utilization"] == 0.0
+        env = dict(idle_w=60, busy_w=200)
+        assert energy_estimate(1.0, 7.5, **env)["utilization"] == 1.0
+        assert energy_estimate(1.0, -1.0, **env)["utilization"] == 0.0
 
     def test_energy_for_cost_uses_roofline_bound(self):
         c = cost_dense(4096, 128)
-        out = energy_for_cost(c, sec=1e-3)
-        assert out["bound"] in ("HBM", "MXU")
+        out = energy_for_cost(
+            c, sec=1e-3, idle_w=70, busy_w=400,
+            device_kind="NVIDIA H100 80GB HBM3",
+        )
+        assert out["bound"] in ("memory", "compute")
         assert 0 < out["joules"] < 1.0  # sub-second kernel, sub-joule
+
+    def test_envelope_is_required(self):
+        with pytest.raises(TypeError):
+            energy_estimate(1.0, 0.5)
+
+    def test_nvidia_smi_power_sampler(self, monkeypatch):
+        import subprocess
+
+        from sgracex1_tpu.utils import power
+
+        calls = []
+
+        def fake_run(cmd, **kw):
+            calls.append(cmd)
+            return subprocess.CompletedProcess(cmd, 0, stdout="123.45 W\n")
+
+        monkeypatch.setattr(power.subprocess, "run", fake_run)
+        sample = power.nvidia_smi_power(2)
+        assert sample() == pytest.approx(123.45)
+        assert calls[0][:2] == ["nvidia-smi", "--query-gpu=power.draw"]
+        assert calls[0][-2:] == ["-i", "2"]
+        rec = PowerRecorder(sample)
+        with rec.record(0.01):
+            time.sleep(0.03)
+        assert rec.mean_w == pytest.approx(123.45)
 
 
 class TestCommModel:
@@ -119,6 +148,14 @@ class TestCommModel:
         full = predicted_efficiency(1e-3, 8, c, overlap=1.0)
         assert full["efficiency"] == pytest.approx(1.0)
         assert none["efficiency"] < 1.0
+
+    def test_link_bandwidth_is_nvlink_each_way(self):
+        from sgracex1_tpu.parallel.comm_model import link_bytes_s
+
+        assert link_bytes_s() == 450e9
+        assert CommCost(450e9).seconds() == pytest.approx(1.0)
+        with pytest.raises(KeyError):
+            link_bytes_s("AMD Instinct MI300X")
 
     def test_scaling_table_shape(self):
         tbl = scaling_table(1e-3, {2: CommCost(1e5), 8: CommCost(4e5)})

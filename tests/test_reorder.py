@@ -63,40 +63,31 @@ def test_spmm_equivariance(rng):
     np.testing.assert_allclose(out_perm[inv], out_direct, rtol=1e-5, atol=1e-5)
 
 
+def _occupied_tiles(M, tb):
+    r = np.asarray(M.rows[: M.nnz]).astype(np.int64)
+    c = np.asarray(M.cols[: M.nnz]).astype(np.int64)
+    return len(np.unique((r // tb) << 32 | (c // tb)))
+
+
 def test_degree_order_densifies_hub_tiles(rng):
     """Degree sort packs power-law hub edges into fewer, denser tiles:
-    the hybrid split harvests more edges onto the MXU tile path and the
-    cost model's hybrid estimate drops."""
+    the same edges touch fewer (tb x tb) blocks of the adjacency, so the
+    gathers of one row block hit fewer distinct feature blocks."""
     from sgracex1_tpu.graph.datasets import powerlaw_node_classification
     from sgracex1_tpu.graph.normalize import sym_norm
     from sgracex1_tpu.graph.reorder import degree_order
-    from sgracex1_tpu.ops.dispatch import (
-        _estimate_backend_costs,
-        split_by_tile_density,
-    )
 
     data = powerlaw_node_classification(
         n=4096, avg_degree=16, num_features=4, seed=0
     )
     A = sym_norm(data.edge_index, data.num_nodes)
-    perm = degree_order(A)
+    # the generator numbers hubs first: shuffle so the sort has work to do
+    shuffled, _ = permute_graph(A, rng.permutation(A.n_rows))
+    perm = degree_order(shuffled)
     assert sorted(perm.tolist()) == list(range(max(A.n_rows, A.n_cols)))
-    B, _ = permute_graph(A, perm)
-    costs_a, _, hy_a = _estimate_backend_costs(A, jnp.bfloat16)
-    costs_b, _, hy_b = _estimate_backend_costs(B, jnp.bfloat16)
-    assert costs_b["hybrid"] <= costs_a["hybrid"]
-    # the sort's real claim: hub clustering PACKS the dense side into
-    # fewer, denser tiles (the per-tile MXU cost is fixed, so edges per
-    # dense tile is what the hybrid backend pays for). Raw dense-side
-    # nnz can move either way at the r4 fused-remainder threshold.
-    def _density(M, tb, thresh):
-        dense, _ = split_by_tile_density(M, tb, thresh)
-        r = np.asarray(dense.rows[: dense.nnz]).astype(np.int64)
-        c = np.asarray(dense.cols[: dense.nnz]).astype(np.int64)
-        ntiles = len(np.unique((r // tb) << 32 | (c // tb)))
-        return dense.nnz / max(ntiles, 1)
-
-    assert _density(B, *hy_a) > _density(A, *hy_a)
+    B, _ = permute_graph(shuffled, perm)
+    for tb in (128, 256):
+        assert _occupied_tiles(B, tb) < _occupied_tiles(shuffled, tb)
 
 
 def test_degree_order_spmm_equivariance(rng):
@@ -112,12 +103,33 @@ def test_degree_order_spmm_equivariance(rng):
 
 
 def test_plan_shrinks_after_rcm(rng):
-    """RCM cuts the number of pallas edge groups on a shuffled banded graph."""
-    from sgracex1_tpu.ops.pallas_spmm import plan_spmm
-
+    """RCM cuts the number of occupied (256 x 256) adjacency blocks of a
+    shuffled banded graph: the edge path's gathers regain locality."""
     A = _banded_graph_shuffled(rng, n=2000, band=3)
     perm = rcm_order(A)
     B, _ = permute_graph(A, perm)
-    g_before = plan_spmm(A, rb=256, cb=256, be=1024).num_groups
-    g_after = plan_spmm(B, rb=256, cb=256, be=1024).num_groups
-    assert g_after < g_before, (g_before, g_after)
+    before, after = _occupied_tiles(A, 256), _occupied_tiles(B, 256)
+    assert after < before, (before, after)
+
+
+@pytest.mark.parametrize("order", ["degree", "random"])
+def test_permute_node_data_relabels_consistently(rng, order):
+    """Training on the relabelled data is training on the same graph: the
+    permuted adjacency from permute_node_data's edges equals permute_graph
+    of the original, and features/labels/masks follow their nodes."""
+    from sgracex1_tpu.graph.datasets import sbm_node_classification
+    from sgracex1_tpu.graph.normalize import sym_norm
+    from sgracex1_tpu.graph.reorder import degree_order, permute_node_data
+
+    data = sbm_node_classification(n=120, num_classes=3, seed=1)
+    A = sym_norm(data.edge_index, 120)
+    perm = degree_order(A) if order == "degree" else rng.permutation(120)
+    d2 = permute_node_data(data, perm)
+    B, _ = permute_graph(A, perm)
+    np.testing.assert_allclose(
+        sym_norm(d2.edge_index, 120).to_dense(), B.to_dense(), rtol=1e-6
+    )
+    np.testing.assert_array_equal(d2.x, data.x[perm])
+    np.testing.assert_array_equal(d2.y, data.y[perm])
+    for m in ("train_mask", "val_mask", "test_mask"):
+        np.testing.assert_array_equal(getattr(d2, m), getattr(data, m)[perm])

@@ -137,13 +137,10 @@ def test_remat_model_matches(rng_seed=0):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-5)
 
 
-def test_orbax_train_state_roundtrip(tmp_path):
-    """Full train-state (params + optimizer) checkpoint via orbax."""
+def test_train_state_checkpoint_roundtrip(tmp_path):
+    """Full train-state (params + optimizer state) checkpoint round trip
+    (numpy archive of the flattened tree; orbax is no longer used)."""
     import jax
-    from sgracex1_tpu.train.checkpoint import (
-        save_train_state_orbax,
-        load_train_state_orbax,
-    )
 
     data = sbm_node_classification(n=100, num_classes=2, seed=10)
     cfg = SGRACEConfig(hidden_channels=8, num_epochs=3, learning_rate=0.01)
@@ -151,12 +148,13 @@ def test_orbax_train_state_roundtrip(tmp_path):
         num_features=data.num_features, hidden_channels=8, num_classes=2
     )
     state, _ = train_node_classifier(model, data, cfg)
-    save_train_state_orbax(str(tmp_path / "ckpt"), state.params, step=3)
-    restored = load_train_state_orbax(
-        str(tmp_path / "ckpt"), jax.device_get(state.params), step=3
+    tree = {"params": state.params, "opt_state": state.opt_state}
+    save_checkpoint(str(tmp_path / "ckpt" / "step_3.npz"), tree)
+    restored = load_checkpoint(
+        str(tmp_path / "ckpt" / "step_3.npz"), jax.device_get(tree)
     )
     for a, b in zip(
-        jax.tree.leaves(jax.device_get(state.params)),
+        jax.tree.leaves(jax.device_get(tree)),
         jax.tree.leaves(restored),
     ):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
@@ -236,46 +234,32 @@ def test_amazon_photo_analogue_sampled_quantized_anchor():
 
 
 def test_training_loops_engage_prepared_backends():
-    """VERDICT r3 #2: the product training path must run the prepared
-    tile/dense/flash backends, not the gather fallback. At SBM-300 scale
-    the cost model picks the dense MXU backend; GAT models additionally
-    get flash mask tiles attached."""
+    """The training loops run on the backend the cost model picks: at
+    SBM-300 density the dense matmul; a forced method and the explicit
+    opt-outs still work."""
     from sgracex1_tpu.graph.normalize import sym_norm
     from sgracex1_tpu.ops.dispatch import PreparedAdjacency
-    from sgracex1_tpu.train.loop import _prepare_backend, _uses_attention
+    from sgracex1_tpu.train.loop import _prepare_backend
 
     data = sbm_node_classification(n=300, num_classes=3, seed=5)
     A = sym_norm(data.edge_index, data.num_nodes).device()
-    cfg = SGRACEConfig(hidden_channels=16)
-    gcn = GCNModel(
-        num_features=data.num_features, hidden_channels=16,
-        num_classes=data.num_classes,
-    )
-    gat = GATModel(
-        num_features=data.num_features, hidden_channels=16,
-        num_classes=data.num_classes,
-    )
-    assert not _uses_attention(gcn) and _uses_attention(gat)
 
-    prep = _prepare_backend(A, cfg, gcn, "auto")
+    prep = _prepare_backend(A, "auto")
     assert isinstance(prep, PreparedAdjacency)
-    assert prep.kind != "xla"  # the cost model picked a real backend
-
-    prep_gat = _prepare_backend(A, cfg, gat, "auto")
-    assert prep_gat.flash_tiles is not None  # flash attention engages
+    assert prep.kind == "dense"  # dense enough for the matmul to win
+    assert _prepare_backend(A, "xla").kind == "xla"
 
     # explicit opt-outs still work
-    assert not isinstance(_prepare_backend(A, cfg, gcn, "off"),
+    assert not isinstance(_prepare_backend(A, "off"),
                           PreparedAdjacency)
-    assert _prepare_backend(A, cfg, gcn, prep) is prep
+    assert _prepare_backend(A, prep) is prep
 
 
 def test_sampled_loop_compiles_once_across_epochs():
-    """VERDICT r4 #4 (literal form): the sampled loop's jitted step must
-    not retrace across batches/epochs — the sticky pads (node/edge
-    floors + tile/fused-schedule padding) keep ONE traced shape. A
-    Python-side-effect counter in the model's __call__ fires only at
-    TRACE time, so its count is the number of compilations."""
+    """The sampled loop's jitted step must not retrace across
+    batches/epochs — the sticky pads (node/edge floors) keep ONE traced
+    shape. A Python-side-effect counter in the model's __call__ fires
+    only at TRACE time, so its count is the number of compilations."""
     trace_count = [0]
 
     class CountingGCN(GCNModel):
@@ -300,3 +284,28 @@ def test_sampled_loop_compiles_once_across_epochs():
     assert trace_count[0] <= 5, (
         f"sampled step retraced: {trace_count[0]} traces"
     )
+
+
+def test_checkpoint_rejects_mismatched_target(tmp_path):
+    import jax.numpy as jnp
+
+    path = str(tmp_path / "p.npz")
+    save_checkpoint(path, {"a": jnp.ones((2, 3)), "b": jnp.zeros(4)})
+    with pytest.raises(ValueError, match="shape"):
+        load_checkpoint(path, {"a": np.ones((3, 2)), "b": np.zeros(4)})
+    with pytest.raises(ValueError, match="holds 2 arrays"):
+        load_checkpoint(path, {"a": np.ones((2, 3))})
+    out = load_checkpoint(path, {"a": np.ones((2, 3)), "b": np.ones(4)})
+    np.testing.assert_array_equal(out["b"], np.zeros(4))
+
+
+def test_history_records_step_times_and_backend():
+    data = sbm_node_classification(n=120, num_classes=2, seed=3)
+    cfg = SGRACEConfig(hidden_channels=8, num_epochs=3, learning_rate=0.01)
+    model = GCNModel(num_features=data.num_features, hidden_channels=8,
+                     num_classes=2)
+    _, hist = train_node_classifier(model, data, cfg, prepare="xla")
+    assert hist.backend == "xla"
+    assert len(hist.step_s) == 3 and all(t > 0 for t in hist.step_s)
+    _, hist = train_node_classifier(model, data, cfg, prepare="off")
+    assert hist.backend == "off"
